@@ -15,14 +15,21 @@ import pytest
 import torch
 
 from wvpk.container import parse_blocks
+from wvpk.container.blocks import pair_wvc
 from wvpk.ref import decode_block
 from wvpk.testgen import EncodeSpec, encode_file, encode_multichannel
+from wvpk.testgen.encoder import encode_blocks
 from wvpk_torch.engine import decode_states
 from wvpk_torch.engine.staging import bucket_tensors, group_blocks
-from wvpk_torch.ops.decorr import decorr_post
-from wvpk_torch.ops.decorr_cuda import decorr_post_cuda
-from wvpk_torch.ops.entropy import entropy_decode
-from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda
+from wvpk_torch.ops.decorr import decorr_post, decorr_post_wvc
+from wvpk_torch.ops.decorr_cuda import decorr_post_cuda, \
+    decorr_post_wvc_cuda
+from wvpk_torch.ops.entropy import entropy_decode, wvc_corrections
+from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda, \
+    entropy_decode_wvc_cuda
+from wvpk_torch.ops.post import wvx_inject
+from wvpk_torch.ops.wvc_cuda import wvc_corrections_cuda
+from wvpk_torch.ops.wvx_cuda import wvx_inject_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -44,20 +51,23 @@ def noise(n, ch, scale, seed):
                     ).astype(np.int64)
 
 
-def _zero_runs():
+def _zero_runs(**hybrid):
     pcm = np.zeros((512, 2), np.int64)
     pcm[100:130] = noise(30, 2, 50, 3)
     return encode_file(pcm, EncodeSpec(
         block_samples=256, joint=True,
-        initial_medians=((0, 0, 0), (0, 0, 0))))
+        initial_medians=((0, 0, 0), (0, 0, 0)), **hybrid))
 
 
-def _truncated():
+def _truncated(**hybrid):
     data = bytearray(encode_file(noise(512, 2, 2000, 5),
-                                 EncodeSpec(block_samples=256, joint=True)))
+                                 EncodeSpec(block_samples=256, joint=True,
+                                            **hybrid)))
     data[200:240] = b"\xff" * 40
     return bytes(data)
 
+
+HYB = dict(hybrid=True, hybrid_bitrate=True, bitrate=400, bitrate_delta=1)
 
 STREAMS = {
     "stereo_joint": lambda: encode_file(
@@ -75,19 +85,84 @@ STREAMS = {
         noise(600, 2, 20000, 3) << 3,
         EncodeSpec(block_samples=300, joint=True, bytes_stored=3, shift=3,
                    terms=(17, -1, 5, -2, 3, -3), deltas=(2, 3, 1, 2, 2, 4))),
+    "hybrid_bitrate_balance": lambda: encode_file(
+        noise(900, 2, 3000, 6),
+        EncodeSpec(block_samples=300, joint=True, hybrid=True,
+                   hybrid_bitrate=True, hybrid_balance=True, bitrate=350,
+                   bitrate_delta=2)),
+    "hybrid_plain": lambda: encode_file(
+        noise(600, 2, 7000, 8),
+        EncodeSpec(block_samples=300, joint=True, hybrid=True, bitrate=600)),
+    "hybrid_mono": lambda: encode_file(
+        noise(600, 1, 3000, 9),
+        EncodeSpec(block_samples=300, mono=True, **HYB)),
+    "hybrid_zero_runs": lambda: _zero_runs(**HYB),
+    "hybrid_truncated": lambda: _truncated(**HYB),
 }
+
+
+def _wvc_pair(pcm, spec):
+    """Parsed blocks of a hybrid file with its correction file paired."""
+    sink = []
+    blocks = parse_blocks(b"".join(encode_blocks(pcm, spec, wvc_sink=sink)))
+    pair_wvc(blocks, b"".join(sink))
+    return blocks
+
+
+WVC_PAIRS = {
+    "stereo_bitrate_balance": lambda: _wvc_pair(
+        noise(900, 2, 3000, 11),
+        EncodeSpec(block_samples=300, joint=True, hybrid=True,
+                   hybrid_bitrate=True, hybrid_balance=True, bitrate=300,
+                   bitrate_delta=2, wvc=True)),
+    "mono": lambda: _wvc_pair(
+        noise(600, 1, 2000, 12),
+        EncodeSpec(block_samples=300, mono=True, wvc=True, **HYB)),
+    "stereo_cross_terms": lambda: _wvc_pair(
+        noise(600, 2, 5000, 13),
+        EncodeSpec(block_samples=300, hybrid=True, bitrate=500, wvc=True,
+                   terms=(17, -3, 2), deltas=(2, 2, 2))),
+}
+
+
+def _kw(prof):
+    return dict(mono=prof.mono, nsteps=prof.nsteps, hybrid=prof.hybrid,
+                hybrid_bitrate=prof.hybrid_bitrate,
+                hybrid_balance=prof.hybrid_balance)
+
+
+def _entropy_args(t):
+    return (t["words"], t["nwords_lane"], t["med"], t["slow"], t["acc"],
+            t["delta"])
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_entropy_kernel_matches_plain(cuda, name):
     b = group_blocks([x.state for x in parse_blocks(STREAMS[name]())])[0]
     t = bucket_tensors(b, cuda)
-    kw = dict(mono=b.profile.mono, nsteps=b.profile.nsteps)
-    got = entropy_decode_cuda(t["words"], t["nwords_lane"], t["med"], **kw)
-    want = entropy_decode(t["words"], t["nwords_lane"], t["med"], **kw)
+    got = entropy_decode_cuda(*_entropy_args(t), **_kw(b.profile))
+    want = entropy_decode(*_entropy_args(t), **_kw(b.profile))
     torch.cuda.synchronize()
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("name", sorted(WVC_PAIRS))
+def test_entropy_wvc_and_corrections_kernels_match_plain(cuda, name):
+    b = group_blocks([x.state for x in WVC_PAIRS[name]()])[0]
+    assert b.profile.has_wvc
+    t = bucket_tensors(b, cuda)
+    kw = _kw(b.profile)
+    del kw["hybrid"]
+    got = entropy_decode_wvc_cuda(*_entropy_args(t), **kw)
+    want = entropy_decode(*_entropy_args(t), hybrid=True, wvc=True, **kw)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert (want[1] > 0).any()
+    res, mc, base = want[:3]
+    corr = wvc_corrections_cuda(t["wvc_words"], mc, base, res)
+    assert torch.equal(corr, wvc_corrections(t["wvc_words"], mc, base, res))
 
 
 def _decorr_inputs(seed, T, L, mono, big=False):
@@ -114,10 +189,13 @@ def _decorr_inputs(seed, T, L, mono, big=False):
     return (res, terms, deltas, wa, wb, ha, hb, num_terms, ns, joint, lim)
 
 
-@pytest.mark.parametrize("mono,big", [(False, False), (True, False),
-                                      (False, True)],
-                         ids=["stereo", "mono", "stereo_wraparound"])
-def test_decorr_kernel_matches_plain(cuda, mono, big):
+DECORR = {"stereo": (False, False), "mono": (True, False),
+          "stereo_wraparound": (False, True)}
+
+
+@pytest.mark.parametrize("name", sorted(DECORR))
+def test_decorr_kernel_matches_plain(cuda, name):
+    mono, big = DECORR[name]
     args = [torch.from_numpy(a).to(cuda)
             for a in _decorr_inputs(7, 96, 45, mono, big)]
     got = decorr_post_cuda(*args, mono=mono)
@@ -127,11 +205,105 @@ def test_decorr_kernel_matches_plain(cuda, mono, big):
         assert torch.equal(w, g)
 
 
+@pytest.mark.parametrize("name", sorted(DECORR))
+def test_decorr_wvc_kernel_matches_plain(cuda, name):
+    mono, big = DECORR[name]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _decorr_inputs(8, 96, 45, mono, big)]
+    rng = np.random.default_rng(9)
+    corr = rng.integers(-2**12, 2**12, tuple(args[0].shape))
+    corr = np.where(rng.random(corr.shape) < 0.5, 0, corr).astype(np.int32)
+    args.insert(1, torch.from_numpy(corr).to(cuda))
+    got = decorr_post_wvc_cuda(*args, mono=mono)
+    want = decorr_post_wvc(*args, mono=mono)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert not torch.equal(want[1], want[2])
+
+
+def wvx_inputs(seed, T, L, C):
+    """Random wvx injection inputs: values up to 24 bits, 0-8 sent bits,
+    old-style and max_width streams, every re-expansion arm, short lanes
+    and FALSE_STEREO lanes (mono layout). Returns numpy arrays in
+    wvx_inject's argument order."""
+    rng = np.random.default_rng(seed)
+    out = rng.integers(-2**23, 2**23, (T, L, C)).astype(np.int32)
+    ns = rng.integers(T // 2, T + 1, L).astype(np.int32)
+    out[np.arange(T)[:, None] >= ns[None, :]] = 0
+    words = rng.integers(0, 2**32, (L, 4 * T * C // 32 + 16),
+                         dtype=np.uint64).astype(np.uint32).view(np.int32)
+    start_bit = rng.choice([0, 5], L).astype(np.int32)
+    start_bc = np.where(start_bit == 5, 3, 0).astype(np.int32)
+    sent = rng.integers(0, 9, L).astype(np.int32)
+    mw = rng.choice([0, 0, 30, 26], L).astype(np.int32)
+    zod = np.zeros((L, 3), np.int32)
+    arm = rng.integers(0, 4, L)
+    for i in range(L):
+        if arm[i] < 3:
+            zod[i, arm[i]] = rng.integers(1, 4)
+    fs = (rng.random(L) < 0.4) if C == 1 else np.zeros(L, bool)
+    return out, ns, words, start_bit, start_bc, sent, mw, zod, fs
+
+
+@pytest.mark.parametrize("C", [1, 2], ids=["mono_false_stereo", "stereo"])
+def test_wvx_kernel_matches_plain(cuda, C):
+    arrays = [torch.from_numpy(a).to(cuda) for a in wvx_inputs(3, 80, 40, C)]
+    got = wvx_inject_cuda(*arrays)
+    want = wvx_inject(*arrays)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+
+
+FAMILIES = ("any", "hybrid", "wvx", "float", "wvc", "int32")
+
+
+def pcm_case(seed):
+    """A random PCM file (wvpk.testgen.fuzzspec: mono, false stereo,
+    joint, 1-16 terms incl. cross terms, 8-32 bit, shift, block
+    checksums), sometimes with a corrupted byte. Seeds take the families
+    in turn: any (random_spec's own mix), hybrid, int32+wvx, float, a
+    hybrid file paired with its .wvc (random_wvc_spec) and int32
+    zeros/ones/dups. Returns (blocks, pcm, spec)."""
+    from wvpk.testgen.fuzzspec import random_pcm, random_spec, \
+        random_wvc_spec
+
+    rng = np.random.default_rng(3000 + seed)
+    family = FAMILIES[seed % len(FAMILIES)]
+    wvc = family == "wvc"
+    while True:
+        if wvc:
+            spec = random_wvc_spec(rng)
+        elif family in ("any", "float"):
+            spec = random_spec(rng, family=None if family == "any"
+                               else family)
+        else:
+            spec = random_spec(rng, family="plain" if family == "hybrid"
+                               else "int32")
+        if family != "hybrid" or spec.hybrid:
+            if family not in ("wvx", "int32") \
+                    or (spec.int32_mode == "wvx") == (family == "wvx"):
+                break
+    n = int(rng.integers(spec.block_samples // 2,
+                         spec.block_samples * 2 + 1))
+    pcm = random_pcm(rng, n, spec.nch_data, spec)
+    sink = [] if wvc else None
+    data = b"".join(encode_blocks(pcm, spec, wvc_sink=sink))
+    if rng.random() < 0.25:
+        data = bytearray(data)
+        data[int(rng.integers(64, len(data)))] ^= int(rng.integers(1, 256))
+        data = bytes(data)
+    blocks = parse_blocks(data)
+    if wvc:
+        pair_wvc(blocks, b"".join(sink))
+    return blocks, pcm, spec
+
+
 def lossless_case(seed):
-    """A random in-slice file (wvpk.testgen.fuzzspec: mono, false stereo,
-    joint, 1-16 terms incl. cross terms, 8-32 bit, shift, int32
-    zeros/ones/dups, block checksums), sometimes with a corrupted byte.
-    Returns (data, pcm, spec)."""
+    """A random lossless integer file (the families of pcm_case without
+    hybrid, float and wvx), sometimes with a corrupted byte. Returns
+    (data, pcm, spec)."""
     from wvpk.testgen.fuzzspec import random_pcm, random_spec
 
     rng = np.random.default_rng(2000 + seed)
@@ -150,33 +322,44 @@ def lossless_case(seed):
     return data, pcm, spec
 
 
+def _same(w, g, msg=""):
+    np.testing.assert_array_equal(w.samples, g.samples, err_msg=msg)
+    assert (w.crc, w.crc_x, w.crc_wvc, w.mute_error, w.crc_error,
+            w.wvc_applied) == (g.crc, g.crc_x, g.crc_wvc, g.mute_error,
+                               g.crc_error, g.wvc_applied), msg
+
+
 def test_decode_states_cuda_matches_cpu_and_oracle(cuda):
-    files = [STREAMS[n]() for n in sorted(STREAMS)]
-    files.append(encode_multichannel(noise(600, 6, 3000, 6),
-                                     EncodeSpec(block_samples=300,
-                                                joint=True)))
-    states = [b.state for f in files for b in parse_blocks(f)]
+    files = [parse_blocks(STREAMS[n]()) for n in sorted(STREAMS)]
+    files += [WVC_PAIRS[n]() for n in sorted(WVC_PAIRS)]
+    files.append(parse_blocks(encode_multichannel(
+        noise(600, 6, 3000, 6), EncodeSpec(block_samples=300, joint=True))))
+    files.append(parse_blocks(encode_file(
+        np.random.default_rng(13).integers(-2**22, 2**22, size=(300, 2)),
+        EncodeSpec(block_samples=150, float_data=True, bytes_stored=4,
+                   float_shift=0, float_max_exp=130, float_norm_exp=127))))
+    files.append(parse_blocks(encode_file(
+        np.random.default_rng(14).integers(-2**29, 2**29, size=(300, 1)),
+        EncodeSpec(block_samples=150, bytes_stored=4, false_stereo=True,
+                   int32_mode="wvx", int32_sent_bits=6,
+                   int32_max_width=30))))
+    states = [b.state for f in files for b in f]
     got = decode_states(states, device=cuda)
     want = decode_states(states, device="cpu")
     for st, w, g in zip(states, want, got):
-        np.testing.assert_array_equal(w.samples, g.samples)
-        assert (w.crc, w.mute_error, w.crc_error) == \
-            (g.crc, g.mute_error, g.crc_error)
+        _same(w, g)
         if not g.crc_error:
             np.testing.assert_array_equal(decode_block(st).samples,
                                           g.samples)
 
 
 @pytest.mark.parametrize("seed", range(24))
-def test_fuzz_lossless_cuda_matches_cpu(cuda, seed):
-    """Random in-slice files: the kernels' decode equals the plain
-    versions', flags included."""
-    data, _pcm, spec = lossless_case(seed)
-    states = [b.state for b in parse_blocks(data)]
+def test_fuzz_every_pcm_family_cuda_matches_cpu(cuda, seed):
+    """Random files of every PCM family, .wvc pairs included: the
+    kernels' decode equals the plain versions', flags included."""
+    blocks, _pcm, spec = pcm_case(seed)
+    states = [b.state for b in blocks]
     got = decode_states(states, device=cuda)
     want = decode_states(states, device="cpu")
     for w, g in zip(want, got):
-        np.testing.assert_array_equal(w.samples, g.samples,
-                                      err_msg=f"seed {seed} {spec}")
-        assert (w.crc, w.mute_error, w.crc_error) == \
-            (g.crc, g.mute_error, g.crc_error), (seed, spec)
+        _same(w, g, f"seed {seed} {spec}")

@@ -138,9 +138,11 @@ def test_fixup_integer_arms_match_xla(arm):
     shift = rng.integers(0, 12, L).astype(np.int32)
     zod = np.tile(np.asarray(FIXUP_ZOD[arm], np.int32), (L, 1))
     expand = arm != "shift_only"
-    want = jax_fixup(out, shift, np.ones(L, np.int32), np.zeros(L, np.int32),
-                     zod, is_float=False, int32_expand=expand, hybrid=False)
-    got = fixup(*tt(out, shift, zod), int32_expand=expand)
+    bs, fsh = np.ones(L, np.int32), np.zeros(L, np.int32)
+    want = jax_fixup(out, shift, bs, fsh, zod, is_float=False,
+                     int32_expand=expand, hybrid=False)
+    got = fixup(*tt(out, shift, bs, fsh, zod), is_float=False,
+                int32_expand=expand, hybrid=False)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 

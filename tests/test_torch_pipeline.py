@@ -1,8 +1,11 @@
-"""wvpk_torch vs wvpk through the whole lossless slice, on the CPU: the
-staged buckets, decode_states, the api unpack and the CLI's .wav, on a
-small mixed corpus (stereo and mono, 8/16/24/32-bit, several term chains,
-shift, 5.1 multichannel and one corrupted block). Integer codec: every
-comparison is exact."""
+"""wvpk_torch vs wvpk through every PCM mode, on the CPU: the staged
+buckets, decode_states, the api unpack and the CLI's .wav, on a small mixed
+corpus (stereo and mono, 8/16/24/32-bit, several term chains, shift, 5.1
+multichannel, one corrupted block, hybrid with and without bitrate and
+balance, float, int32+wvx with false stereo, a hybrid file with its .wvc).
+Integer codec: every comparison is exact. The faults of the reference that
+the port does not copy are checked against the source or by what the
+port does, not against wvpk."""
 
 import subprocess
 import sys
@@ -16,16 +19,18 @@ from wvpk import api as jax_api
 from wvpk import consts
 from wvpk.cli import main as jax_cli_main
 from wvpk.container import parse_blocks
+from wvpk.container.blocks import pair_wvc
 from wvpk.engine import decode_states as jax_decode_states
 from wvpk.engine.staging import group_blocks as jax_group_blocks
 from wvpk.testgen import EncodeSpec, encode_dsd_file, encode_file, \
     encode_multichannel
+from wvpk.testgen.encoder import encode_blocks
 from wvpk_torch import api
 from wvpk_torch.cli import main as cli_main
-from wvpk_torch.engine import decode_states
+from wvpk_torch.engine import decode_states, pipeline
 from wvpk_torch.engine.staging import group_blocks
 
-from test_torch_cuda import lossless_case
+from test_torch_cuda import lossless_case, pcm_case
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -60,7 +65,46 @@ CORPUS = {
     "mc51": lambda: encode_multichannel(
         noise(600, 6, 3000, 6), EncodeSpec(block_samples=300, joint=True)),
     "corrupted": _corrupted,
+    "hybrid": lambda: encode_file(
+        noise(600, 2, 7000, 8),
+        EncodeSpec(block_samples=300, joint=True, hybrid=True, bitrate=600)),
+    "hybrid_bitrate_balance": lambda: encode_file(
+        noise(512, 2, 3000, 9),
+        EncodeSpec(block_samples=256, joint=True, hybrid=True,
+                   hybrid_bitrate=True, hybrid_balance=True, bitrate=350,
+                   bitrate_delta=2)),
+    "hybrid_mono": lambda: encode_file(
+        noise(400, 1, 3000, 10),
+        EncodeSpec(block_samples=256, mono=True, hybrid=True,
+                   hybrid_bitrate=True, bitrate=300, bitrate_delta=1)),
+    "float": lambda: encode_file(
+        np.random.default_rng(13).integers(-2**22, 2**22, size=(300, 2)),
+        EncodeSpec(block_samples=150, float_data=True, bytes_stored=4,
+                   float_shift=0, float_max_exp=127, float_norm_exp=127)),
+    "int32_wvx_false_stereo": lambda: encode_file(
+        np.random.default_rng(11).integers(-2**29, 2**29, size=(300, 1)),
+        EncodeSpec(block_samples=150, bytes_stored=4, false_stereo=True,
+                   int32_mode="wvx", int32_sent_bits=6)),
+    "hybrid_wvc": lambda: _wvc_pair(noise(512, 2, 4000, 12), EncodeSpec(
+        block_samples=256, joint=True, hybrid=True, hybrid_bitrate=True,
+        bitrate=300, bitrate_delta=1, wvc=True)),
 }
+
+
+def _wvc_pair(pcm, spec):
+    """(.wv bytes, .wvc bytes) of a hybrid-lossless encode."""
+    sink = []
+    wv = b"".join(encode_blocks(pcm, spec, wvc_sink=sink))
+    return wv, b"".join(sink)
+
+
+def _blocks(entry):
+    """Parsed blocks of a corpus entry, its .wvc paired where it has one."""
+    if isinstance(entry, tuple):
+        blocks = parse_blocks(entry[0])
+        assert pair_wvc(blocks, entry[1]) == len(blocks)
+        return blocks
+    return parse_blocks(entry)
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +113,7 @@ def corpus():
 
 
 def _all_states(corpus):
-    return [b.state for data in corpus.values() for b in parse_blocks(data)]
+    return [b.state for entry in corpus.values() for b in _blocks(entry)]
 
 
 def test_staging_matches_wvpk(corpus):
@@ -93,14 +137,18 @@ def test_decode_states_matches_wvpk(corpus):
     assert len(got) == len(want)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(w.samples, g.samples)
-        assert (w.crc, w.crc_x, w.mute_error, w.crc_error) == \
-            (g.crc, g.crc_x, g.mute_error, g.crc_error)
+        assert (w.crc, w.crc_x, w.crc_wvc, w.mute_error, w.crc_error,
+                w.wvc_applied) == (g.crc, g.crc_x, g.crc_wvc, g.mute_error,
+                                   g.crc_error, g.wvc_applied)
     assert sum(g.crc_error for g in got) == 1
+    assert any(g.wvc_applied for g in got)
+    assert any(g.crc_x != -1 for g in got)
 
 
-def _unpack_all(mod, data, **kw):
+def _unpack_all(mod, entry, **kw):
+    data, wvc = entry if isinstance(entry, tuple) else (entry, None)
     wpc = mod.WavpackOpenFileInput(data, flags=consts.OPEN_ALL_CHANNELS,
-                                   **kw)
+                                   wvc_source=wvc, **kw)
     n = mod.WavpackGetNumSamples(wpc)
     nch = mod.WavpackGetNumChannels(wpc)
     buf = np.zeros(n * nch, np.int32)
@@ -119,8 +167,13 @@ def test_api_unpack_matches_wvpk(corpus, name):
 
 @pytest.mark.parametrize("name", sorted(CORPUS))
 def test_cli_wav_matches_wvpk(corpus, name, tmp_path):
+    """A .wvc beside its .wv is picked up by both CLIs."""
     src = tmp_path / f"{name}.wv"
-    src.write_bytes(corpus[name])
+    entry = corpus[name]
+    if isinstance(entry, tuple):
+        entry, wvc = entry
+        (tmp_path / f"{name}.wvc").write_bytes(wvc)
+    src.write_bytes(entry)
     rc_want = jax_cli_main([str(src), "-o", str(tmp_path / "want.wav"),
                             "-q"])
     rc_got = cli_main([str(src), "-o", str(tmp_path / "got.wav"), "-q",
@@ -149,7 +202,8 @@ def test_api_streaming_and_seek_match_eager(corpus, name, tmp_path):
 
 def test_cli_batch_matches_wvpk(corpus, tmp_path):
     paths = []
-    for name in ("stereo16_joint", "mono8", "int32_zeros"):
+    for name in ("stereo16_joint", "mono8", "int32_zeros", "float",
+                 "hybrid_mono"):
         for tag in ("want", "got"):
             (tmp_path / tag).mkdir(exist_ok=True)
             (tmp_path / tag / f"{name}.wv").write_bytes(corpus[name])
@@ -186,18 +240,130 @@ def test_fuzz_lossless_matches_oracle(seed):
             np.testing.assert_array_equal(g.samples, src)
 
 
-OUT_OF_SLICE = {
-    "hybrid": lambda: encode_file(
-        noise(600, 2, 7000, 8),
-        EncodeSpec(block_samples=300, joint=True, hybrid=True, bitrate=600)),
-    "float": lambda: encode_file(
-        np.random.default_rng(13).integers(-2**22, 2**22, size=(300, 2)),
-        EncodeSpec(block_samples=150, float_data=True, bytes_stored=4,
-                   float_shift=0, float_max_exp=127, float_norm_exp=127)),
-    "int32_wvx": lambda: encode_file(
-        np.random.default_rng(11).integers(-2**29, 2**29, size=(300, 2)),
+@pytest.mark.parametrize("seed", range(12))
+def test_fuzz_every_pcm_family_matches_oracle(seed):
+    """Random files of every PCM family (plain, hybrid, int32 with wvx or
+    zeros/ones/dups, float) and random .wvc pairs: the port's decode
+    equals the scalar oracle, flags included, and the source PCM wherever
+    the decode is lossless and the block intact."""
+    from wvpk.ref import decode_block
+
+    blocks, pcm, spec = pcm_case(seed)
+    got = decode_states([b.state for b in blocks], device="cpu")
+    lossless = (not spec.hybrid or spec.wvc) and not spec.float_data
+    for blk, g in zip(blocks, got):
+        want = decode_block(blk.state)
+        np.testing.assert_array_equal(g.samples, want.samples,
+                                      err_msg=f"seed {seed} {spec}")
+        assert (g.mute_error, g.crc_error, g.crc_wvc, g.wvc_applied) == \
+            (want.mute_error, want.crc_error, want.crc_wvc,
+             want.wvc_applied), (seed, spec)
+        if lossless and not (want.mute_error or want.crc_error):
+            lo = blk.header.block_index
+            src = pcm[lo:min(blk.header.end_index, len(pcm))]
+            if spec.false_stereo:
+                src = np.repeat(src, 2, axis=1)
+            np.testing.assert_array_equal(g.samples, src)
+
+
+def test_float_bucket_is_never_packed():
+    """The float restore yields 24-bit values whatever the stored width:
+    a float bucket ships them as int32 (packing 2 stored bytes would cut
+    them). Checked against the oracle."""
+    from wvpk.ref import decode_block
+
+    rng = np.random.default_rng(21)
+    data = encode_file(rng.integers(-2**22, 2**22, size=(300, 2)),
+                       EncodeSpec(block_samples=150, float_data=True,
+                                  bytes_stored=2, float_shift=0,
+                                  float_max_exp=130, float_norm_exp=127))
+    blocks = parse_blocks(data)
+    (b,) = group_blocks([x.state for x in blocks])
+    assert b.profile.is_float and set(b.bytes_stored) == {1}
+    assert pipeline._bucket_bps(b) is None
+    got = decode_states([x.state for x in blocks], device="cpu")
+    for blk, g in zip(blocks, got):
+        want = decode_block(blk.state)
+        np.testing.assert_array_equal(g.samples, want.samples)
+        assert np.abs(g.samples).max() > 2**15
+
+
+def test_corrupted_wvx_stream_is_flagged_by_crc_x():
+    """A flipped bit in a block's wvx stream leaves the main CRC good; the
+    block is flagged through crc_x, as the oracle flags it."""
+    from wvpk.ref import decode_block
+
+    data = encode_file(
+        np.random.default_rng(22).integers(-2**29, 2**29, size=(300, 2)),
         EncodeSpec(block_samples=150, bytes_stored=4, int32_mode="wvx",
-                   int32_sent_bits=6)),
+                   int32_sent_bits=7))
+    states = [b.state for b in parse_blocks(data)]
+    wvx = bytearray(states[1].wvxbits)
+    wvx[len(wvx) // 2] ^= 0x10
+    states[1].wvxbits = bytes(wvx)
+    got = decode_states(states, device="cpu")
+    assert [g.crc_error for g in got] == [False, True]
+    assert got[1].crc == states[1].header.crc
+    assert got[1].crc_x != states[1].crc_mvx
+    want = decode_block(states[1])
+    assert (want.crc_x, want.crc_error) == (got[1].crc_x, True)
+    np.testing.assert_array_equal(want.samples, got[1].samples)
+
+
+def _open_fds() -> int:
+    return len(list(Path("/proc/self/fd").iterdir()))
+
+
+def test_failed_wvc_pairing_closes_the_correction_file(corpus, tmp_path,
+                                                       monkeypatch):
+    """When a correction file cannot be paired the open closes it again
+    (and decodes lossy, like the plain hybrid file); a paired streaming
+    reader is closed by close()."""
+    import wvpk.container.stream as stream
+
+    wv, wvc = corpus["hybrid_wvc"]
+    (tmp_path / "h.wv").write_bytes(wv)
+    (tmp_path / "h.wvc").write_bytes(wvc)
+
+    class Broken:
+        def __init__(self, f):
+            raise OSError("unreadable correction file")
+
+    lossy = _unpack_all(api, wv, device="cpu")[1]
+    for reader, paired in ((Broken, False), (stream.WvcReader, True)):
+        monkeypatch.setattr(stream, "WvcReader", reader)
+        before = _open_fds()
+        for _ in range(2):
+            wpc = api.WavpackOpenFileInput(
+                str(tmp_path / "h.wv"), flags=consts.OPEN_WVC,
+                streaming=True, device="cpu")
+            assert wpc.wvc_all_paired is paired
+            buf = np.zeros(lossy.size, np.int32)
+            api.WavpackUnpackSamples(wpc, buf, lossy.size // 2)
+            wpc.close()
+            assert np.array_equal(buf, lossy) is not paired
+        assert _open_fds() == before
+
+
+def test_explicit_wvc_with_several_inputs_is_refused(corpus, tmp_path):
+    """--wvc PATH names one correction file: with several inputs it is
+    refused (exit 2, nothing written), never dropped."""
+    wv, wvc = corpus["hybrid_wvc"]
+    for name in ("a", "b"):
+        (tmp_path / f"{name}.wv").write_bytes(wv)
+    (tmp_path / "x.wvc").write_bytes(wvc)
+    args = [str(tmp_path / "a.wv"), str(tmp_path / "b.wv"), "--wvc",
+            str(tmp_path / "x.wvc"), "-q", "--device", "cpu"]
+    assert cli_main(args) == 2
+    assert cli_main(args + ["--batch"]) == 2
+    assert not list(tmp_path.glob("*.wav"))
+    assert cli_main([str(tmp_path / "a.wv"), "--wvc",
+                     str(tmp_path / "x.wvc"), "-q", "--device", "cpu"]) == 0
+    src = noise(512, 2, 4000, 12).astype("<i2").tobytes()
+    assert (tmp_path / "a.wav").read_bytes().endswith(src)
+
+
+OUT_OF_SLICE = {
     "dsd": lambda: encode_dsd_file(
         np.random.default_rng(9).integers(0, 256, (400, 2)).astype(np.uint8),
         1, mono=False, block_samples=200),

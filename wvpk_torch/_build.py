@@ -1,16 +1,19 @@
 """Build the CUDA sources in `csrc/` with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` exports a plain C function (no PyTorch headers, so
-nvcc takes seconds, not minutes). It compiles on first use into
+nvcc takes seconds, not minutes); the `.cuh` headers beside them are
+shared. A source compiles on first use into
 `build/wvpk_torch/<name>-<hash>.so` at the root of the checkout; the hash
-covers the source and the flags, so an edited source rebuilds. The
+covers the source, the headers and the flags, so an edit rebuilds. The
 finished library is renamed into place, so concurrent first uses never
-load a half-written file.
+load a half-written file. `build_all` starts one nvcc per source, all at
+once, and waits for them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -23,6 +26,7 @@ BUILD_DIR = os.path.join(
     "build", "wvpk_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("entropy", "decorr", "wvc", "wvx")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # seconds nvcc took and what ptxas reported (registers, spills), per
@@ -40,26 +44,51 @@ def _nvcc() -> str:
     return path
 
 
+def _so_path(name: str) -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(_CSRC, name + ".cu"),
+                 *sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_all(names=SOURCES) -> None:
+    """Build every named source that is not built yet, one nvcc process
+    each, all started together; raises if any fails."""
+    todo = [(n, _so_path(n)) for n in names]
+    todo = [(n, p) for n, p in todo if not os.path.exists(p)]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for name, so_path in todo:
+        tmp = f"{so_path}.tmp{os.getpid()}"
+        src = os.path.join(_CSRC, name + ".cu")
+        procs.append((name, so_path, tmp, src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, so_path, tmp, src, proc in procs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{err}")
+            continue
+        os.replace(tmp, so_path)
+        build_seconds[name] = time.perf_counter() - t0
+        ptxas_log[name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, building it if needed."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    so_path = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.tmp{os.getpid()}"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        os.replace(tmp, so_path)
-        build_seconds[name] = time.perf_counter() - t0
-        ptxas_log[name] = proc.stderr
-    lib = ctypes.CDLL(so_path)
+    build_all([name])
+    lib = ctypes.CDLL(_so_path(name))
     _libs[name] = lib
     return lib

@@ -7,7 +7,10 @@ Name-for-name parity with the reference's L5 surface
 Pythonic method names are provided alongside the C#-style module functions.
 The one difference from wvpk: `WavpackOpenFileInput` takes `device`
 ("cuda" by default, or "cpu") and every unpack decodes there through
-wvpk_torch's engine. Correction (.wvc) pairing waits for the wvc slice.
+wvpk_torch's engine. A `.wvc` correction file pairs as in wvpk
+(`wvc_source=`, or OPEN_WVC for the `<path>c` sibling) and makes hybrid
+blocks decode losslessly; a correction file the open cannot use is closed
+again, and one the context keeps is closed by `close()`.
 
 Unlike the reference (sample-serial, single stream), unpacking is served
 from the batched device engine: blocks are decoded lane-parallel in device
@@ -67,6 +70,12 @@ class WavpackContext:
     all_channels: bool = False
     streaming: bool = False
     device: torch.device | None = None     # where unpack decodes
+    # hybrid-lossless (.wvc correction file) pairing state: number of
+    # audio blocks that received a correction payload, and whether EVERY
+    # hybrid audio block did (drives MODE_WVC/MODE_LOSSLESS)
+    wvc_paired: int = 0
+    wvc_all_paired: bool = False
+    _wvc_reader: object = None   # streaming mode's open correction file
     _decoded: dict = field(default_factory=dict)   # segment idx -> np array
     _first_audio: int = 0
     # segments: (block_index, end_index, [block positions]) per multichannel
@@ -148,15 +157,23 @@ class WavpackContext:
         return self._decoded[seg_idx]
 
     def close(self) -> None:
-        """Release the underlying file handle (streaming mode)."""
+        """Release the underlying file handles (streaming mode): the .wv
+        file and the correction file's reader."""
         if self.streaming and hasattr(self.blocks, "close"):
             self.blocks.close()
+        if self._wvc_reader is not None:
+            self._wvc_reader.close()
+            self._wvc_reader = None
 
     # -- getters (reference names in module functions below) ------------
     def get_mode(self) -> int:
         mode = 0
         if self.config.flags & consts.CONFIG_HYBRID_FLAG:
             mode |= consts.MODE_HYBRID
+            if self.wvc_all_paired:
+                # hybrid-lossless: a full correction pairing restores the
+                # source exactly (libwavpack's MODE_WVC semantics)
+                mode |= consts.MODE_WVC | consts.MODE_LOSSLESS
         elif not (self.config.flags & consts.CONFIG_LOSSY_MODE):
             mode |= consts.MODE_LOSSLESS
         if self.lossy_blocks:
@@ -258,8 +275,39 @@ def _update_lossy(wpc: WavpackContext, st) -> None:
         wpc.lossy_blocks = True
 
 
+def _pair_wvc_source(wpc: WavpackContext, wvc_source) -> None:
+    """Attach a correction file's payloads to the open context. Never
+    raises: a broken correction file degrades to plain hybrid decode. A
+    file this function opens is closed again when pairing fails; in
+    streaming mode a paired reader stays open until `close()`."""
+    from wvpk.container.blocks import pair_wvc
+    from wvpk.container.stream import WvcReader
+
+    is_path = (isinstance(wvc_source, str)
+               or hasattr(wvc_source, "__fspath__"))
+    f = None
+    try:
+        if wpc.streaming:
+            f = open(wvc_source, "rb") if is_path else wvc_source
+            reader = WvcReader(f)
+            wpc.wvc_paired = wpc.blocks.attach_wvc(reader)
+            wpc._wvc_reader = reader
+        else:
+            wpc.wvc_paired = pair_wvc(wpc.blocks, _read_source(wvc_source))
+        hybrid_audio = sum(
+            1 for h in _headers_of(wpc)
+            if h.block_samples > 0 and (h.flags & consts.HYBRID_FLAG))
+        wpc.wvc_all_paired = (hybrid_audio > 0
+                              and wpc.wvc_paired >= hybrid_audio)
+    except Exception:  # boundary: a correction file is optional
+        wpc.wvc_paired = 0
+        wpc.wvc_all_paired = False
+        if is_path and f is not None and wpc._wvc_reader is None:
+            f.close()
+
+
 def WavpackOpenFileInput(source, flags: int = 0,
-                         streaming: bool | None = None,
+                         streaming: bool | None = None, wvc_source=None,
                          device: str | torch.device = "cuda"
                          ) -> WavpackContext:
     """Open a .wv source (bytes / path / file-like); reference
@@ -270,6 +318,12 @@ def WavpackOpenFileInput(source, flags: int = 0,
     streaming mode (header index eager, per-block payload parse lazy +
     LRU, decoded-segment cache evicted at `cache_segments`); everything
     else parses eagerly. Pass True/False to force.
+
+    `wvc_source` (bytes / path / file-like) pairs a hybrid-lossless
+    correction file; OPEN_WVC in `flags` pairs the sibling `<path>c` file
+    instead (libwavpack's convention). The reference notes it "will not
+    handle correction files" (WavPackUtils.cs:31); a missing or corrupt
+    correction file falls back to plain (lossy) hybrid decode.
 
     `device` is where unpacking decodes: "cuda" (the CUDA kernels) or
     "cpu" (their plain PyTorch versions). "cuda" without a usable GPU
@@ -386,6 +440,13 @@ def WavpackOpenFileInput(source, flags: int = 0,
         wpc.config.bytes_per_sample = 1
         wpc.config.bits_per_sample = 8
     wpc.sample_index = headers[first].block_index
+    # paired last, so that no failed open above leaves it open
+    if wvc_source is None and (flags & consts.OPEN_WVC) and is_path:
+        cand = os.fspath(source) + "c"
+        if os.path.exists(cand):
+            wvc_source = cand
+    if wvc_source is not None:
+        _pair_wvc_source(wpc, wvc_source)
     return wpc
 
 
@@ -475,6 +536,8 @@ def WavpackGetNumErrors(wpc):
 
 
 def WavpackLossy(wpc):
+    if wpc.wvc_all_paired and not wpc.lossy_blocks:
+        return False   # hybrid-lossless: corrections restore the source
     return wpc.lossy_blocks or bool(wpc.config.flags
                                     & consts.CONFIG_HYBRID_FLAG)
 

@@ -1,13 +1,17 @@
 """CLI: .wv -> .wav decoder on the GPU (port of wvpk/cli.py, decode side).
 
     python -m wvpk_torch.cli in.wv -o out.wav [--device cuda|cpu]
+        [--wvc [PATH] | --no-wvc]
     python -m wvpk_torch.cli a.wv b.wv ... --batch
 
 Single-file mode mirrors the reference demo's output and end checks
 (WvDemo.cs:15-168: sample-count equality and crc_errors == 0, exit code 1
-on failure); batch mode decodes many files in one device batch and reports
-throughput. Encoding, correction files and the JSON report stay in
-`python -m wvpk.cli`.
+on failure). A sibling `<input>c` correction file is picked up
+automatically, as wvunpack does: hybrid blocks then decode losslessly;
+`--wvc PATH` names another correction file (one input only) and
+`--no-wvc` ignores it. Float streams write an IEEE-float WAV. Batch mode
+decodes many files' .wv streams in one device batch and reports
+throughput. Encoding and the JSON report stay in `python -m wvpk.cli`.
 """
 
 from __future__ import annotations
@@ -28,12 +32,27 @@ from . import api
 def decode_one(path: str, out_path: str | None, quiet: bool = False,
                show_trace: bool = False, raw: bool = False,
                streaming: bool | None = None, verify_md5: bool = False,
-               device: str = "cuda") -> int:
+               device: str = "cuda", wvc: str | None = None,
+               no_wvc: bool = False) -> int:
     t_open = time.perf_counter()
     # unlike the reference demo (first two channels only), decode every
-    # stream of multichannel files
-    wpc = api.WavpackOpenFileInput(path, flags=consts.OPEN_ALL_CHANNELS,
-                                   streaming=streaming, device=device)
+    # stream of multichannel files; pair the sibling correction file
+    # unless told otherwise
+    flags = consts.OPEN_ALL_CHANNELS
+    if not no_wvc and wvc is None:
+        flags |= consts.OPEN_WVC
+    wpc = api.WavpackOpenFileInput(path, flags=flags, streaming=streaming,
+                                   wvc_source=None if no_wvc else wvc,
+                                   device=device)
+    try:
+        return _decode_open(wpc, path, out_path, quiet, show_trace, raw,
+                            verify_md5, t_open)
+    finally:
+        wpc.close()
+
+
+def _decode_open(wpc, path, out_path, quiet, show_trace, raw, verify_md5,
+                 t_open) -> int:
     err = api.WavpackGetErrorMessage(wpc)
     if err:
         print(f"Error: {err}", file=sys.stderr)
@@ -55,12 +74,20 @@ def decode_one(path: str, out_path: str | None, quiet: bool = False,
         print(f"{bits} bits per sample")
         print(f"{sample_rate} samples/s")
         print(f"{total_samples} total samples = {dur:.3f}s")
-        print(f"{'Lossy' if api.WavpackLossy(wpc) else 'Lossless'} "
-              f"decoding on {wpc.device}")
+        if api.WavpackGetMode(wpc) & consts.MODE_WVC:
+            print(f"Lossless decoding (hybrid + wvc correction) on "
+                  f"{wpc.device}")
+        else:
+            print(f"{'Lossy' if api.WavpackLossy(wpc) else 'Lossless'} "
+                  f"decoding on {wpc.device}")
         level = api.WavpackGetCompressionLevel(wpc)
         if level:
             print(f"{level} compression level")
 
+    # float streams format to IEEE float32 on the stream's grid (an
+    # extension: the reference demo writes clipped 24-bit ints)
+    float_exp = (api.WavpackGetFloatNormExp(wpc)
+                 if api.WavpackGetIsFloat(wpc) else 0) or None
     t0 = time.perf_counter()
     total_unpacked = 0
     # output streams to disk as it is formatted (and the MD5 folds
@@ -75,9 +102,16 @@ def decode_one(path: str, out_path: str | None, quiet: bool = False,
         if out_f is not None and not raw:
             # raw mode is container-less: interleaved little-endian PCM
             hdr = api.WavpackGetHeader(wpc)
-            out_f.write(hdr if hdr else make_wav_header(
-                max(total_samples, 0), num_channels, sample_rate, bits,
-                byteps))
+            if hdr:
+                out_f.write(hdr)
+            elif float_exp is not None:
+                out_f.write(make_wav_header(
+                    max(total_samples, 0), num_channels, sample_rate, 32, 4,
+                    fmt_tag=3))
+            else:
+                out_f.write(make_wav_header(
+                    max(total_samples, 0), num_channels, sample_rate, bits,
+                    byteps))
         with trace.collect() as stages:
             while True:
                 got = api.WavpackUnpackSamples(wpc, buf,
@@ -86,8 +120,9 @@ def decode_one(path: str, out_path: str | None, quiet: bool = False,
                     break
                 total_unpacked += got
                 with trace.stage("format"):
-                    fmt = api.WavpackFormatSamples(buf, got * num_channels,
-                                                   byteps)
+                    fmt = api.WavpackFormatSamples(
+                        buf, got * num_channels, byteps,
+                        float_norm_exp=float_exp)
                 if out_f is not None:
                     out_f.write(fmt)
                 if md5er is not None:
@@ -169,16 +204,20 @@ def decode_batch(paths: list[str], quiet: bool = False,
             crc_errors += int(r.crc_error)
             total_samples += b.header.block_samples
             chunks.append(format_samples(
-                r.samples, (b.header.flags & consts.BYTES_STORED) + 1))
+                r.samples, (b.header.flags & consts.BYTES_STORED) + 1,
+                float_norm_exp=(b.state.float_norm_exp or None)
+                if b.header.flags & consts.FLOAT_DATA else None))
         hdr0 = blocks[0].header
-        bps = (hdr0.flags & consts.BYTES_STORED) + 1
+        is_float = bool(hdr0.flags & consts.FLOAT_DATA)
+        bps = 4 if is_float else (hdr0.flags & consts.BYTES_STORED) + 1
         n = sum(b.header.block_samples for b in blocks)
         out_path = (path[:-3] if path.endswith(".wv") else path) + ".wav"
         srate_idx = (hdr0.flags & consts.SRATE_MASK) >> consts.SRATE_LSB
         rate = consts.SAMPLE_RATES[srate_idx] if srate_idx < 15 else 44100
         write_wav(out_path, b"".join(chunks), total_samples=n,
                   num_channels=nch, sample_rate=rate,
-                  bits_per_sample=bps * 8, bytes_per_sample=bps)
+                  bits_per_sample=bps * 8, bytes_per_sample=bps,
+                  fmt_tag=3 if is_float else 1)
         if crc_errors:
             print(f"{path}: {crc_errors} CRC errors detected",
                   file=sys.stderr)
@@ -215,10 +254,24 @@ def main(argv=None) -> int:
     p.add_argument("--verify-md5", action="store_true",
                    help="verify decoded audio against the file's stored "
                         "MD5 checksum (fails if the file carries none)")
+    p.add_argument("--wvc", nargs="?", const=True, default=None,
+                   metavar="PATH",
+                   help="pair this correction file (one input only; "
+                        "without PATH, or by default, the sibling "
+                        "<input>c is picked up)")
+    p.add_argument("--no-wvc", action="store_true",
+                   help="ignore any correction file (plain lossy hybrid "
+                        "decode)")
     args = p.parse_args(argv)
 
     if args.output and len(args.inputs) > 1 and not args.batch:
         print("Error: -o/--output requires a single input file",
+              file=sys.stderr)
+        return 2
+    wvc_path = args.wvc if isinstance(args.wvc, str) else None
+    if wvc_path is not None and (len(args.inputs) > 1 or args.batch):
+        print("Error: --wvc PATH pairs one correction file with a single "
+              "input file (siblings are picked up without it)",
               file=sys.stderr)
         return 2
     if args.batch:
@@ -230,7 +283,8 @@ def main(argv=None) -> int:
         rc |= decode_one(path, out, args.quiet, show_trace=args.trace,
                          raw=args.raw,
                          streaming=True if args.streaming else None,
-                         verify_md5=args.verify_md5, device=args.device)
+                         verify_md5=args.verify_md5, device=args.device,
+                         wvc=wvc_path, no_wvc=args.no_wvc)
     return rc
 
 

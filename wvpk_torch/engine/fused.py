@@ -1,10 +1,15 @@
 """Fused bucket decode: entropy -> decorrelation with joint/mute/CRC ->
-fixup -> byte pack (port of wvpk/engine/fused.py, lossless path).
+[wvx injection] -> fixup -> byte pack (port of wvpk/engine/fused.py).
 
 There is no jit: each step runs eagerly on the bucket's device, the CUDA
-kernels on "cuda" and their plain versions on "cpu". The blob helpers move
-a bucket's ~15 per-lane arrays to the device as ONE packed int32 buffer
-and unpack it there, so a bucket pays one host-to-device copy.
+kernels on "cuda" and their plain versions on "cpu". Three programs, as
+in wvpk: `fused_decode` for lossless, hybrid and float buckets,
+`fused_decode_wvx` for int32+wvx buckets (the injection runs between
+joint/CRC and the final shift, the reference's order,
+UnpackUtils.cs:1271-1314) and `fused_decode_wvc` for hybrid buckets with a
+paired correction stream. The blob helpers move a bucket's per-lane arrays
+to the device as ONE packed int32 buffer and unpack it there, so a bucket
+pays one host-to-device copy.
 """
 
 from __future__ import annotations
@@ -14,39 +19,111 @@ import torch
 
 from wvpk import consts
 
-from ..ops.decorr_select import decorr_post_any
-from ..ops.entropy_select import entropy_decode_any
+from ..ops.decorr_select import decorr_post_any, decorr_post_wvc_any
+from ..ops.entropy_select import entropy_decode_any, \
+    entropy_decode_wvc_any, wvc_corrections_any
 from ..ops.pack import pack_samples
 from ..ops.post import fixup
+from ..ops.post_select import wvx_inject_any
 
 
-def fused_decode(words, nwords_lane, nsamples, med, terms, deltas16, wa,
-                 wb, hist_a, hist_b, num_terms, joint, mute_limit, shift,
-                 int32_zod, *, mono: bool, int32_expand: bool, nsteps: int):
+def fused_decode(words, nwords_lane, nsamples, med, slow, acc, delta,
+                 terms, deltas16, wa, wb, hist_a, hist_b, num_terms, joint,
+                 mute_limit, shift, bytes_stored, float_shift_eff, int32_zod,
+                 *, mono: bool, hybrid: bool, hybrid_bitrate: bool,
+                 hybrid_balance: bool, is_float: bool, int32_expand: bool,
+                 nsteps: int):
     """Decode one bucket. Returns (out (T, L, C) int32, crc (L,) int32,
     mute (L,) bool)."""
     residuals, broke, _ndec = entropy_decode_any(
-        words, nwords_lane, med, mono=mono, nsteps=nsteps)
+        words, nwords_lane, med, slow, acc, delta, mono=mono, nsteps=nsteps,
+        hybrid=hybrid, hybrid_bitrate=hybrid_bitrate,
+        hybrid_balance=hybrid_balance)
     out, crc, mute = decorr_post_any(
         residuals, terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
         nsamples, joint, mute_limit, broke, mono=mono)
-    out = fixup(out, shift, int32_zod, int32_expand=int32_expand)
+    out = fixup(out, shift, bytes_stored, float_shift_eff, int32_zod,
+                is_float=is_float, int32_expand=int32_expand, hybrid=hybrid)
     return out, crc, mute
+
+
+def fused_decode_wvx(words, nwords_lane, nsamples, med, slow, acc, delta,
+                     terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
+                     joint, mute_limit, shift, bytes_stored, float_shift_eff,
+                     int32_zod, wvx_words, wvx_start_bit, wvx_start_bc,
+                     sent_bits, max_width, false_stereo, *, mono: bool,
+                     hybrid: bool, hybrid_bitrate: bool,
+                     hybrid_balance: bool, has_false_stereo: bool,
+                     nsteps: int):
+    """Decode one INT32+wvx bucket: the wvx low-bit injection, with its
+    own re-expansion and crc_x, runs between joint/CRC and the final
+    shift. Returns (out, crc, mute, crc_x (L,) int32)."""
+    residuals, broke, _ndec = entropy_decode_any(
+        words, nwords_lane, med, slow, acc, delta, mono=mono, nsteps=nsteps,
+        hybrid=hybrid, hybrid_bitrate=hybrid_bitrate,
+        hybrid_balance=hybrid_balance)
+    out, crc, mute = decorr_post_any(
+        residuals, terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
+        nsamples, joint, mute_limit, broke, mono=mono)
+    out, crc_x = wvx_inject_any(
+        out, nsamples, wvx_words, wvx_start_bit, wvx_start_bc, sent_bits,
+        max_width, int32_zod,
+        false_stereo if has_false_stereo else None)
+    out = fixup(out, shift, bytes_stored, float_shift_eff, int32_zod,
+                is_float=False, int32_expand=False, hybrid=hybrid)
+    return out, crc, mute, crc_x
+
+
+def fused_decode_wvc(words, nwords_lane, nsamples, med, slow, acc, delta,
+                     terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
+                     joint, mute_limit, shift, bytes_stored, float_shift_eff,
+                     int32_zod, wvc_words, *, mono: bool,
+                     hybrid_bitrate: bool, hybrid_balance: bool,
+                     is_float: bool, int32_expand: bool, nsteps: int):
+    """Decode one hybrid bucket with its correction streams, exactly
+    (libwavpack's hybrid-lossless semantics; the reference never reads
+    the correction stream, WavPackUtils.cs:31).
+
+    The entropy decode also reports each word's narrowed interval, the
+    correction scan reads the wvc stream, and the corrections add after
+    the decorrelation chain and before the joint undo. Both CRCs come
+    back: the wv header's (lossy reconstruction) and the wvc header's
+    (exact samples). The float restore follows the block's profile
+    (wvpk's fused_decode_wvc skips it). Returns (out, crc, mute,
+    crc_wvc)."""
+    residuals, mc, base, broke, _ndec = entropy_decode_wvc_any(
+        words, nwords_lane, med, slow, acc, delta, mono=mono,
+        hybrid_bitrate=hybrid_bitrate, hybrid_balance=hybrid_balance,
+        nsteps=nsteps)
+    corr = wvc_corrections_any(wvc_words, mc, base, residuals)
+    out, crc, crc_wvc, mute = decorr_post_wvc_any(
+        residuals, corr, terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
+        nsamples, joint, mute_limit, broke, mono=mono)
+    out = fixup(out, shift, bytes_stored, float_shift_eff, int32_zod,
+                is_float=is_float, int32_expand=int32_expand, hybrid=True)
+    return out, crc, mute, crc_wvc
 
 
 # ---------------------------------------------------------------------------
 # blob staging
 # ---------------------------------------------------------------------------
 
-# The bucket arrays the lossless decode reads, in blob order; the term
-# arrays ship trimmed to the bucket's longest chain and are padded back to
-# MAX_NTERMS on the device. The int64 arrays listed in NARROW hold int32
-# values and ship as int32.
-DEVICE_FIELDS = ("words", "nwords_lane", "nsamples", "med", "terms",
-                 "deltas16", "wa", "wb", "hist_a", "hist_b", "num_terms",
-                 "joint", "mute_limit", "shift", "int32_zod")
+# The bucket arrays every decode reads, in blob order, then those of wvx
+# and wvc buckets (wvx buckets also ship a per-lane FALSE_STEREO flag). The
+# term arrays ship trimmed to the bucket's longest chain and are padded
+# back to MAX_NTERMS on the device. The int64 arrays listed in NARROW hold
+# int32 values and ship as int32; `acc`, a genuine 64-bit accumulator,
+# ships whole.
+DEVICE_FIELDS = ("words", "nwords_lane", "nsamples", "med", "slow", "acc",
+                 "delta", "terms", "deltas16", "wa", "wb", "hist_a",
+                 "hist_b", "num_terms", "joint", "mute_limit", "shift",
+                 "bytes_stored", "float_shift_eff", "int32_zod")
+WVX_FIELDS = ("wvx_words", "wvx_start_bit", "wvx_start_bc", "sent_bits",
+              "max_width")
+WVC_FIELDS = ("wvc_words",)
 TERM_FIELDS = ("terms", "deltas16", "wa", "wb", "hist_a", "hist_b")
-NARROW = frozenset({"med", "hist_a", "hist_b", "mute_limit"})
+NARROW = frozenset({"med", "slow", "delta", "hist_a", "hist_b",
+                    "mute_limit"})
 
 
 def build_blob(arrays: dict[str, np.ndarray], narrow=frozenset()
@@ -112,11 +189,15 @@ def restore_terms(t: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return t
 
 
-def deliver(out, crc, mute, pack_bps: int | None):
+def deliver(out, crc, mute, pack_bps: int | None, crc_x=None, crc_wvc=None):
     """The bucket's two results for the host: the PCM payload (packed
-    bytes, or the int32 samples) and a stacked (crc, mute, crc_x) table;
-    crc_x is -1, the lossless slice has no wvx stream."""
+    bytes, or the int32 samples) and a stacked (crc, mute, crc_x) table,
+    crc_x -1 where the bucket has no wvx stream, with a 4th row crc_wvc
+    for a bucket decoded with its correction streams."""
     payload = out if pack_bps is None else pack_samples(out, bps=pack_bps)
-    crcmute = torch.stack([crc.to(torch.int32), mute.to(torch.int32),
-                           torch.full_like(crc, -1, dtype=torch.int32)])
-    return payload, crcmute
+    rows = [crc.to(torch.int32), mute.to(torch.int32),
+            torch.full_like(crc, -1, dtype=torch.int32) if crc_x is None
+            else crc_x.to(torch.int32)]
+    if crc_wvc is not None:
+        rows.append(crc_wvc.to(torch.int32))
+    return payload, torch.stack(rows)

@@ -1,13 +1,14 @@
-"""The bucket decode pipeline (port of wvpk/engine/pipeline.py, lossless
-PCM).
+"""The bucket decode pipeline (port of wvpk/engine/pipeline.py, PCM).
 
 Per call: parse-side block states -> buckets (host staging) -> per bucket
-one host-to-device blob, the entropy kernel, the decorrelation kernel with
-joint/mute/CRC folded in, fixup and the byte pack, all queued on the
-device -> ONE batched device-to-host copy for every bucket's results ->
-`DecodedBlock`s on the host. The host only parses containers and
-reassembles outputs (reference UnpackUtils.cs:510-686 splits at the same
-place: unpack_init on the host, the sample math on the device).
+one host-to-device blob and its fused program (entropy, decorrelation
+with joint/mute/CRC folded in, wvx injection for int32+wvx buckets, the
+correction scan for hybrid buckets paired with a .wvc, fixup and the byte
+pack), all queued on the device -> ONE batched device-to-host copy for
+every bucket's results -> `DecodedBlock`s on the host. The host only
+parses containers and reassembles outputs (reference UnpackUtils.cs:
+510-686 splits at the same place: unpack_init on the host, the sample
+math on the device).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from wvpk.config import get_options
 from wvpk.container.blockstate import BlockState
 
 from ..device import resolve
-from .fused import deliver, fused_decode
+from .fused import DEVICE_FIELDS, WVX_FIELDS, deliver, fused_decode, \
+    fused_decode_wvc, fused_decode_wvx
 from .staging import Bucket, bucket_tensors, check_slice, group_blocks
 
 
@@ -40,17 +42,20 @@ class DecodedBlock:
 @dataclass
 class LaunchedBucket:
     """One bucket's decode, queued on the device until the batched fetch:
-    the PCM payload and one stacked (crc, mute, crc_x) table."""
+    the PCM payload and one stacked (crc, mute, crc_x[, crc_wvc]) table."""
     bucket: Bucket
     payload: torch.Tensor      # (L, W) packed PCM words or (T, L, C) int32
-    crcmute: torch.Tensor      # (3, L) int32
+    crcmute: torch.Tensor      # (3, L) int32, (4, L) for a wvc bucket
     bps: int | None            # packed bytes/sample, None = raw int32
 
 
 def _bucket_bps(b: Bucket) -> int | None:
     """Packed delivery width: set when every lane agrees on bytes_stored
     and packing shrinks the copy (reference analog: the demo's format loop
-    WvDemo.cs:117-141 packing to bytes_per_sample)."""
+    WvDemo.cs:117-141 packing to bytes_per_sample). Never for float: the
+    float restore delivers 24-bit values in 4 bytes."""
+    if b.profile.is_float:
+        return None
     bs = b.bytes_stored
     if len(bs) == 0 or (bs != bs[0]).any():
         return None
@@ -58,13 +63,39 @@ def _bucket_bps(b: Bucket) -> int | None:
     return bps if bps in (1, 2, 3) else None
 
 
-def launch_bucket(b: Bucket, device: torch.device) -> LaunchedBucket:
+def decode_tensors(b: Bucket, t: dict[str, torch.Tensor]):
+    """Run a staged bucket's fused program (`t` from bucket_tensors): the
+    wvc program for a bucket paired with correction streams, the wvx one
+    for int32+wvx, the plain one otherwise. Returns (out, crc, mute,
+    crc_x or None, crc_wvc or None)."""
     prof = b.profile
-    t = bucket_tensors(b, device)
+    base = {k: t[k] for k in DEVICE_FIELDS}
+    hyb = dict(mono=prof.mono, hybrid_bitrate=prof.hybrid_bitrate,
+               hybrid_balance=prof.hybrid_balance, nsteps=prof.nsteps)
+    if prof.has_wvc:
+        out, crc, mute, crc_wvc = fused_decode_wvc(
+            **base, wvc_words=t["wvc_words"], is_float=prof.is_float,
+            int32_expand=prof.is_int32, **hyb)
+        return out, crc, mute, None, crc_wvc
+    if prof.has_wvx:
+        fs = any(st.flags & consts.FALSE_STEREO for st in b.states)
+        out, crc, mute, crc_x = fused_decode_wvx(
+            **base, **{k: t[k] for k in WVX_FIELDS},
+            false_stereo=t["false_stereo"], hybrid=prof.hybrid,
+            has_false_stereo=fs, **hyb)
+        return out, crc, mute, crc_x, None
     out, crc, mute = fused_decode(
-        **t, mono=prof.mono, int32_expand=prof.is_int32, nsteps=prof.nsteps)
+        **base, hybrid=prof.hybrid, is_float=prof.is_float,
+        int32_expand=prof.is_int32, **hyb)
+    return out, crc, mute, None, None
+
+
+def launch_bucket(b: Bucket, device: torch.device) -> LaunchedBucket:
+    out, crc, mute, crc_x, crc_wvc = decode_tensors(
+        b, bucket_tensors(b, device))
     bps = _bucket_bps(b) if get_options().packed_delivery else None
-    payload, crcmute = deliver(out, crc, mute, bps)
+    payload, crcmute = deliver(out, crc, mute, bps, crc_x=crc_x,
+                               crc_wvc=crc_wvc)
     return LaunchedBucket(bucket=b, payload=payload, crcmute=crcmute, bps=bps)
 
 
@@ -86,8 +117,9 @@ def _unpack_lane(raw_words: np.ndarray, n_vals: int, bps: int,
 def finalize_bucket(lb: LaunchedBucket, cm: np.ndarray,
                     payload_np: np.ndarray) -> list[DecodedBlock]:
     b = lb.bucket
+    prof = b.profile
     crc_np, mute_np, crc_x = cm[0], cm[1], cm[2]
-    C = 1 if b.profile.mono else 2
+    C = 1 if prof.mono else 2
     results = []
     for i, st in enumerate(b.states):
         n = int(b.nsamples[i])
@@ -97,11 +129,17 @@ def finalize_bucket(lb: LaunchedBucket, cm: np.ndarray,
             vals = payload_np[:n, i, :]
         if st.flags & consts.FALSE_STEREO:
             vals = np.repeat(vals, 2, axis=1)
+        crc_err = (int(crc_np[i]) != st.header.crc
+                   or (prof.has_wvx and int(crc_x[i]) != st.crc_mvx))
+        crc_wvc = -1
+        if prof.has_wvc:
+            crc_wvc = int(cm[3][i])
+            crc_err = crc_err or crc_wvc != int(b.wvc_crc[i])
         results.append(DecodedBlock(
             samples=np.ascontiguousarray(vals),
             crc=int(crc_np[i]), crc_x=int(crc_x[i]),
-            mute_error=bool(mute_np[i]),
-            crc_error=int(crc_np[i]) != st.header.crc))
+            mute_error=bool(mute_np[i]), crc_error=bool(crc_err),
+            crc_wvc=crc_wvc, wvc_applied=prof.has_wvc))
     return results
 
 
@@ -121,9 +159,10 @@ def _fetch_arrays(arrs: list[torch.Tensor]) -> list[np.ndarray]:
 
 def decode_states(states: list[BlockState],
                   device: str | torch.device = "cuda") -> list[DecodedBlock]:
-    """Decode a list of lossless PCM blocks on `device`. Every bucket is
-    queued first and all results come back in one batched copy. Blocks
-    outside the slice raise NotImplementedError before any work."""
+    """Decode a list of PCM blocks (any mix of profiles) on `device`.
+    Every bucket is queued first and all results come back in one batched
+    copy. DSD blocks, outside the slice, raise NotImplementedError before
+    any work."""
     dev = resolve(device)
     for st in states:
         check_slice(st)

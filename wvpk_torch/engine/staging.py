@@ -1,13 +1,13 @@
 """Block staging: group parsed blocks into buckets and build their
 (lane, ...) arrays (port of wvpk/engine/staging.py).
 
-Buckets are keyed by the block profile (mono, sample capacity, ...);
-everything else (terms, medians, shifts, joint flag, ...) is per-lane data.
-The arrays are numpy and are wvpk's Bucket arrays under the same names,
-so `bucket_tensors` takes a bucket from either package. Not carried over:
-the TPU compile specialisations (lane order by term chain,
-`chain_segments`, `static_terms`) and the wvx and wvc streams, which wait
-for their slices.
+Buckets are keyed by the block profile (mono, hybrid, float, int32, wvx,
+wvc, sample capacity); everything else (terms, medians, shifts, joint
+flag, ...) is per-lane data. The arrays are numpy and are wvpk's Bucket
+arrays under the same names, so `bucket_tensors` takes a bucket from
+either package. The wvx and wvc streams stage as their own (L, W) word
+arrays. Not carried over: the TPU compile specialisations (lane order by
+term chain, `chain_segments`, `static_terms`).
 """
 
 from __future__ import annotations
@@ -23,27 +23,17 @@ from wvpk.container.blockstate import BlockState
 from wvpk.tables import i32
 
 from ..ops.bitio import pack_streams
-from .fused import DEVICE_FIELDS, NARROW, TERM_FIELDS, build_blob, \
-    restore_terms, unpack_blob
+from .fused import DEVICE_FIELDS, NARROW, TERM_FIELDS, WVC_FIELDS, \
+    WVX_FIELDS, build_blob, restore_terms, unpack_blob
 
 
 def check_slice(st: BlockState) -> None:
     """Raise NotImplementedError for a block outside the port's slice
-    (lossless integer PCM), naming the ROADMAP slice that adds it."""
-    f = st.flags
-    if f & consts.DSD_FLAG:
-        what, item = "DSD", "DSD slice (queue 1, item 10)"
-    elif f & consts.HYBRID_FLAG:
-        what, item = "hybrid", "hybrid slice (queue 1, item 8)"
-    elif f & consts.FLOAT_DATA:
-        what, item = "float", "hybrid + float slice (queue 1, item 8)"
-    elif st.wvxbits is not None:
-        what, item = "int32+wvx", "hybrid + int32/wvx slice (queue 1, item 8)"
-    else:
-        return
-    raise NotImplementedError(
-        f"wvpk_torch decodes lossless integer PCM only: {what} blocks "
-        f"wait for the ROADMAP {item}")
+    (every PCM mode), naming the ROADMAP slice that adds it."""
+    if st.flags & consts.DSD_FLAG:
+        raise NotImplementedError(
+            "wvpk_torch decodes PCM only: DSD blocks wait for the ROADMAP "
+            "DSD slice (queue 1, item 10)")
 
 
 def _pow2_at_least(n: int, lo: int | None = None) -> int:
@@ -117,6 +107,13 @@ class Bucket:
     int32_zod: np.ndarray       # zeros/ones/dups for the int32 expansion
     sent_bits: np.ndarray
     max_width: np.ndarray
+    wvx_words: np.ndarray | None = None
+    wvx_start_bit: np.ndarray | None = None
+    wvx_start_bc: np.ndarray | None = None
+    # hybrid-lossless correction streams and the correction blocks'
+    # header CRCs, which cover the exact samples
+    wvc_words: np.ndarray | None = None
+    wvc_crc: np.ndarray | None = None
 
 
 def _fixup_params(st: BlockState) -> tuple[int, tuple[int, int, int]]:
@@ -166,7 +163,7 @@ def stage(states: list[BlockState], indices: list[int]) -> Bucket:
     nsamples = np.asarray([st.header.block_samples for st in states],
                           np.int32)
     fix = [_fixup_params(st) for st in states]
-    return Bucket(
+    b = Bucket(
         profile=prof, states=states, indices=indices,
         words=words,
         nwords_lane=nsamples * chans,
@@ -198,6 +195,19 @@ def stage(states: list[BlockState], indices: list[int]) -> Bucket:
         max_width=np.asarray([st.int32_max_width for st in states],
                              np.int32),
     )
+    if prof.has_wvc:
+        b.wvc_words, _ = pack_streams([st.wvcbits or b"" for st in states])
+        b.wvc_crc = np.asarray(
+            [st.wvc_crc if st.wvc_crc is not None else 0 for st in states],
+            np.int32)
+    if prof.has_wvx:
+        b.wvx_words, _ = pack_streams([st.wvxbits or b"" for st in states])
+        b.wvx_start_bit = np.asarray([st.wvx_start_bit for st in states],
+                                     np.int32)
+        # bc after the optional leading getbits(5) reads (new-style field)
+        b.wvx_start_bc = np.asarray(
+            [3 if st.wvx_start_bit == 5 else 0 for st in states], np.int32)
+    return b
 
 
 def group_blocks(states: list[BlockState]) -> list[Bucket]:
@@ -212,16 +222,23 @@ def group_blocks(states: list[BlockState]) -> list[Bucket]:
 
 def bucket_tensors(bucket, device: torch.device) -> dict[str, torch.Tensor]:
     """The bucket's per-lane arrays as tensors on `device`: the state the
-    decode carries. `bucket` is this module's Bucket or wvpk's (same
-    fields). On CUDA the arrays travel as one pinned host blob with one
-    non-blocking copy."""
+    decode carries, with the wvx or wvc streams of such a bucket, and for
+    wvx the FALSE_STEREO flag per lane. `bucket` is this module's Bucket
+    or wvpk's (same fields). On CUDA the arrays travel as one pinned host
+    blob with one non-blocking copy."""
+    prof = bucket.profile
     ntm = max(int(np.max(bucket.num_terms)), 1)
+    names = DEVICE_FIELDS + (WVX_FIELDS if prof.has_wvx else ()) \
+        + (WVC_FIELDS if prof.has_wvc else ())
     arrays = {}
-    for name in DEVICE_FIELDS:
+    for name in names:
         a = getattr(bucket, name)
         if name in TERM_FIELDS:
             a = a[:, :ntm]
         arrays[name] = a
+    if prof.has_wvx:
+        arrays["false_stereo"] = np.asarray(
+            [bool(st.flags & consts.FALSE_STEREO) for st in bucket.states])
     blob, metas = build_blob(arrays, NARROW)
     host = torch.from_numpy(blob)
     if device.type == "cuda":

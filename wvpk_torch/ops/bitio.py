@@ -6,14 +6,22 @@ wvpk/ops/bitio.py).
 On the device the words travel as int32 bit patterns. PyTorch has no full
 uint64 arithmetic, so the tensor helpers work on int64 values that stay
 non-negative: `peek` returns exactly the 33 stream bits at a position,
-which is every bit the lossless decoder reads at once (a code is at most
-28 bits plus its sign bit; a run of 33 ones is already an EOF break).
+which is every bit a decoder reads at once (a code, an error-limit search
+or a wvx window is at most 32 bits, plus the sign bit; a run of 33 ones
+is already an EOF break).
+
+`mylog2_v` and `exp2s_v` are the format's fixed-point log2/exp2
+(WordsUtils.cs:588-646) that the hybrid error limit runs on.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from wvpk.tables import EXP2_NP, LOG2_NP
 
 EXTRA_PAD_WORDS = 8  # room for bounded post-EOF overreads
 PEEK_BITS = 33
@@ -98,3 +106,33 @@ def bit_length64(x: torch.Tensor) -> torch.Tensor:
     e = torch.frexp(x.to(torch.float64)).exponent.to(torch.int64)
     too_big = (x >> torch.clamp(e - 1, min=0)) == 0
     return torch.where(x > 0, e - too_big.to(torch.int64), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def log2_exp2_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The 256-entry log2 and exp2 tables as int64 tensors on `device`."""
+    return tuple(torch.from_numpy(t.astype(np.int64)).to(device)
+                 for t in (LOG2_NP, EXP2_NP))
+
+
+def mylog2_v(av: torch.Tensor) -> torch.Tensor:
+    """mylog2 (WordsUtils.cs:588-608) on int64 values."""
+    av = av + (av >> 9)
+    dbits = torch.where(av > 0, bit_length64(av), 0)
+    sh = dbits - 9
+    idx = torch.where(sh >= 0, av >> torch.clamp(sh, min=0),
+                      av << torch.clamp(-sh, min=0)) & 0xFF
+    return (dbits << 8) + log2_exp2_tables(av.device)[0][idx]
+
+
+def exp2s_v(log: torch.Tensor) -> torch.Tensor:
+    """exp2s (WordsUtils.cs:633-646) on int64 values, with the int32 wrap
+    of its left-shift branch. A shift of 32 or more leaves no low bits of
+    the 9-bit mantissa, so clamping the count to 32 is exact and keeps the
+    int64 shift from overflowing."""
+    a = torch.abs(log)
+    v = log2_exp2_tables(log.device)[1][a & 0xFF] | 0x100
+    sh = a >> 8
+    r = torch.where(sh <= 9, v >> torch.clamp(9 - sh, 0, 63),
+                    wrap32(v << torch.clamp(sh - 9, 0, 32)))
+    return torch.where(log < 0, -r, r)

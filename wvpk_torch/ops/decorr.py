@@ -12,7 +12,8 @@ terms -1, -2, -3. Terms may differ lane to lane; each pass computes only
 the term classes its lanes use.
 
 `decorr_post` (decorr_decode, then the joint/mute/CRC step) is the plain
-version of the CUDA kernel in csrc/decorr.cu.
+version of the CUDA kernel in csrc/decorr.cu, and `decorr_post_wvc` of its
+wvc arm.
 """
 
 from __future__ import annotations
@@ -172,3 +173,24 @@ def decorr_post(residuals, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
     dec = decorr_decode(residuals, terms, deltas, w0_a, w0_b, hist0_a,
                         hist0_b, num_terms, mono=mono)
     return joint_crc(dec, nsamples, joint, mute_limit, mono=mono)
+
+
+def decorr_post_wvc(residuals, corr, terms, deltas, w0_a, w0_b, hist0_a,
+                    hist0_b, num_terms, nsamples, joint, mute_limit, *,
+                    mono: bool):
+    """Plain version of the CUDA decorr kernel's wvc arm (the post steps
+    of wvpk/engine/fused.py::fused_decode_wvc): the chain runs on the
+    lossy residuals, the corrections (T, L, C) int32 add after it with
+    int32 wrap, and the joint/mute/CRC step runs on both.
+
+    Returns (out (T, L, C) int32, the exact samples post-joint and zero
+    past nsamples; crc (L,) int32 of the lossy samples, the wv header's;
+    crc_wvc (L,) int32 of the exact samples, the wvc header's; first_bad
+    (L,) int32 of the exact samples)."""
+    dec = decorr_decode(residuals, terms, deltas, w0_a, w0_b, hist0_a,
+                        hist0_b, num_terms, mono=mono)
+    exact = wrap32(dec.to(I64) + corr.to(I64)).to(torch.int32)
+    out, crc_wvc, first_bad = joint_crc(exact, nsamples, joint, mute_limit,
+                                        mono=mono)
+    _, crc, _ = joint_crc(dec, nsamples, joint, mute_limit, mono=mono)
+    return out, crc, crc_wvc, first_bad
