@@ -8,12 +8,13 @@ Phases, each printing one JSON line:
   2. build every CUDA kernel from wvpk_torch/csrc, one nvcc per source, all
      started together;
   3. lossless: each kernel against its plain PyTorch version on the card,
-     bit-exact, on a 64-lane slice and at the full bucket (the main path's
-     shapes), timed; then the bench corpus (192 files of 4 s 16-bit stereo
-     at 44.1 kHz, 16 distinct signals encoded with wvpk.testgen, each
-     repeated 12 times) through wvpk_torch.engine.decode_states: one
+     bit-exact, at the full bucket (the main path's shape) and launched on
+     a 64-lane slice, both timed; then the bench corpus (192 files of 4 s
+     16-bit stereo at 44.1 kHz, 16 distinct signals encoded with
+     wvpk_torch.testgen, each repeated 12 times) through
+     wvpk_torch.engine.decode_states: one
      warm-up and three timed repeats; 0 CRC errors, 0 mutes, sample-exact
-     against the source PCM, the scalar oracle (wvpk.ref) agreeing on
+     against the source PCM, the scalar oracle (wvpk_torch.ref) agreeing on
      probe blocks, both kernels launched by that run; one run split into
      its stages;
   4. hybrid lossy, the slice's headline: the 10 hybrid signals of the JAX
@@ -32,16 +33,40 @@ Phases, each printing one JSON line:
      max_width 0 and 30; the wvx injection kernel against its plain
      version): decode_states sample-exact against the source, 0 CRC
      errors (crc_x included);
-  7. `python -m wvpk_torch.cli` on a lossless file, a hybrid file beside
+  7. DSD, at the JAX bench's DSD shape (4,096 byte-samples a block, stereo
+     DSD64, 2.8224 MHz): three groups of 8 one-second signals, 87 blocks
+     each (696 lanes a group, 2,088 in all): mode 1 with 4 history bins,
+     mode 1 with 32 and mode 3; in each group 6 signals are first-order
+     sigma-delta modulations of two tones plus noise and 2 are uniform
+     random bytes (the coders' worst case); one mono file each for modes
+     1 and 3 and one mode-0 file run the other instantiations and the raw
+     CRC. Each DSD kernel against its plain version at the full group
+     and launched on its first 64 lanes, both timed, then decode_states as
+     in 3 (0 CRC errors, 0 mutes,
+     byte-exact against the source bytes, the scalar oracle on probe
+     blocks, both DSD kernels launched), the rate in byte-values/s and as
+     a realtime factor of DSD64 stereo; one call mixing 16 lossless files
+     with the DSD corpus, right in both parts from its one batched copy;
+     and a stage split;
+  8. `python -m wvpk_torch.cli` on a lossless file, a hybrid file beside
      its .wvc and a float file: each .wav must equal the WAV header plus
-     the source samples, byte for byte.
-Then a JSON line of per-kernel results and, last, the device JSON line.
+     the source samples, byte for byte; and with --raw on a mode-3 DSD
+     file, whose output must equal the source bytes.
+Then a JSON line of per-kernel results (each with its bound: the bytes
+its function must move over the H100's 3.35 TB/s, each input read once
+and each output written once, counting what the lanes hold and not the
+padding, a delivered output at its delivered width (PCM samples at their
+bytes per sample, DSD byte-values at 1 byte) and of mode 1's tables the
+rows the data visits; the integer coders do no floating-point work, so
+bytes set the bound) and, last, the device JSON line.
 
 Counts of kernel launches are set to 0 just before each decode_states
 phase and read just after it; launches made to compare a kernel with its
-plain version do not count. Where a plain version would run over a
-minute at the full bucket, its time is taken on a 64-lane prefix at full
-T and marked so.
+plain version do not count. A plain version's time grows with its steps,
+not its lanes (one small op per step, whatever the lane count), so it
+runs once, at the full bucket; a 64-lane launch is held against the
+plain outputs of its lanes, and only a slice from another bucket (the
+hybrid phase's HYBRID_BALANCE slice) runs the plain versions again.
 
 Needs one CUDA device; exits non-zero, printing no result, without one or
 when any phase fails. Imports no jax. Writes only under build/ in the
@@ -66,10 +91,20 @@ SPEC = dict(block_samples=4096, joint=True, terms=(18, 17, 2),
 # copies of the distinct signals in the corpora of phases 4-6
 HYBRID_COPIES, WVC_COPIES, FLOAT_COPIES, WVX_COPIES = 37, 46, 9, 18
 PCM_SECONDS = 2.0          # length of each phase 4-6 signal
-PLAIN_LIMIT_S = 60.0       # a longer plain run is timed on 64 lanes only
 # the wvx files: (int32_sent_bits, int32_max_width, amplitude bits); the
 # values stay narrower than max_width, so no sent bit is truncated
 WVX_FILES = ((4, 0, 27), (6, 30, 28), (8, 0, 29), (5, 30, 27))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# DSD: DSD64 (1-bit samples a second per channel), 4096 byte-samples a
+# block (bench.py:644); per group 8 one-second signals, the last 2 random
+# bytes; the groups: (name, mode, history_bits)
+DSD_RATE, DSD_BLOCK, DSD_SIGNALS, DSD_RANDOM = 2822400, 4096, 8, 2
+DSD_GROUPS = (("dsd_fast_bins4", 1, 2), ("dsd_fast_bins32", 1, 5),
+              ("dsd_high", 3, None))
+# the extra files: (name, mode, mono, history_bits)
+DSD_EXTRA = (("dsd_fast_mono", 1, True, 2), ("dsd_high_mono", 3, True, None),
+             ("dsd_raw", 0, False, None))
+DSD64_STEREO_BYTEVALS_PER_S = DSD_RATE // 8 * 2   # 705,600
 
 
 def make_corpus(n_distinct=N_DISTINCT, n_files=N_FILES, seconds=SECONDS,
@@ -78,7 +113,7 @@ def make_corpus(n_distinct=N_DISTINCT, n_files=N_FILES, seconds=SECONDS,
     `n_distinct` encoded files, repeated to `n_files`. Returns (files,
     pcms), one entry per distinct file; file k of the corpus is
     files[k % n_distinct]."""
-    from wvpk.testgen import EncodeSpec, encode_file
+    from wvpk_torch.testgen import EncodeSpec, encode_file
 
     rng = np.random.default_rng(seed)
     n = int(44100 * seconds)
@@ -114,7 +149,7 @@ def make_hybrid(n=None):
     """bench.py::_make_hybrid's 10 signals: 16-bit stereo, block 4096,
     HYBRID_BITRATE at bitrates 256..976, bitrate_delta i % 3, balance on
     i % 3 == 2, two term chains. Returns (files, pcms)."""
-    from wvpk.testgen import EncodeSpec, encode_file
+    from wvpk_torch.testgen import EncodeSpec, encode_file
 
     n = n or int(44100 * PCM_SECONDS)
     files, pcms = [], []
@@ -135,7 +170,7 @@ def make_mono_hybrid(n=None):
     """Three mono hybrid files (the first channel of three hybrid
     signals), for the mono bucket of the entropy kernel's hybrid
     profile."""
-    from wvpk.testgen import EncodeSpec, encode_file
+    from wvpk_torch.testgen import EncodeSpec, encode_file
 
     n = n or int(44100 * PCM_SECONDS)
     files = []
@@ -151,11 +186,11 @@ def make_mono_hybrid(n=None):
 
 def make_wvc(n=None):
     """bench.py::_make_wvc's 8 hybrid-lossless signals, encoded with
-    wvpk.testgen (not wvpk.encode) to the specs wvpk.encode gives them:
+    wvpk_torch.testgen (not wvpk.encode) to the specs wvpk.encode gives them:
     HYBRID_BITRATE at bitrates 256..970, the fast (17, 17) and default
     (18, 18, 2, 17, 3) chains in turn. Returns ([(wv, wvc)], pcms)."""
-    from wvpk.testgen import EncodeSpec
-    from wvpk.testgen.encoder import encode_blocks
+    from wvpk_torch.testgen import EncodeSpec
+    from wvpk_torch.testgen.encoder import encode_blocks
 
     n = n or int(44100 * PCM_SECONDS)
     pairs, pcms = [], []
@@ -178,7 +213,7 @@ def make_float(n=None):
     """bench.py::_make_float's 8 signals: FLOAT_DATA on the grids
     norm_exp 127 and 130 (decoded-int domain, 24-bit), two term chains.
     Returns (files, pcms, norm_exps)."""
-    from wvpk.testgen import EncodeSpec, encode_file
+    from wvpk_torch.testgen import EncodeSpec, encode_file
 
     n = n or int(44100 * PCM_SECONDS)
     files, pcms, exps = [], [], []
@@ -201,7 +236,7 @@ def make_wvx(i, n=None):
     int32_sent_bits bits travel in the wvx stream. The testgen wvx encoder
     is pure Python (~4 s a file), so the files encode in worker
     processes. Returns (file, pcm)."""
-    from wvpk.testgen import EncodeSpec, encode_file
+    from wvpk_torch.testgen import EncodeSpec, encode_file
 
     n = n or int(44100 * PCM_SECONDS)
     sent, max_width, amp = WVX_FILES[i]
@@ -217,8 +252,8 @@ def parse_corpus(files, n_files):
     """Block states of every corpus file (each copy parsed on its own, so
     every lane has its own state) and the block count per file. A file
     given as (wv, wvc) has its correction file paired."""
-    from wvpk.container import parse_blocks
-    from wvpk.container.blocks import pair_wvc
+    from wvpk_torch.container import parse_blocks
+    from wvpk_torch.container.blocks import pair_wvc
 
     states, per_file = [], []
     for k in range(n_files):
@@ -256,35 +291,74 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_pair(name, kernel, plain, args, kw, timed, run_plain=True):
+def _tensor_bytes(t) -> int:
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) \
+        else 0
+
+
+def _outputs(res) -> tuple:
+    """A function's outputs as a tuple (wvc_corrections returns one
+    tensor, the others a tuple)."""
+    return res if isinstance(res, tuple) else (res,)
+
+
+def check_pair(name, kernel, plain, args, kw, timed, run_plain=True,
+               need=None, out_need=None):
     """`kernel` against `plain` on the same inputs; raises on any
-    difference. Returns (the kernel's outputs, {max_abs_err, ms,
-    plain_ms}); ms (5 launches, CUDA events) only when `timed`, the plain
-    version timed once on the host clock and left out (None) when not
-    `run_plain`."""
+    difference. Returns (the kernel's outputs, the plain version's or
+    None, {max_abs_err, ms, plain_ms, bytes, bound_ms}); ms (5 launches,
+    CUDA events) only when `timed`, the plain version timed once on the
+    host clock and left out (None) when not `run_plain`. `bytes` counts
+    each input once and each output once, at its tensor's size unless
+    `need` (inputs) or `out_need` (outputs) maps its index to the bytes
+    the function must move: what the lanes hold, at the delivered
+    width."""
     got = kernel(*args, **kw)
     _sync()
-    res = {"max_abs_err": None, "ms": None, "plain_ms": None}
+    need, out_need = need or {}, out_need or {}
+    nbytes = sum(need[i] if i in need else _tensor_bytes(a)
+                 for i, a in enumerate(args)) \
+        + sum(out_need[i] if i in out_need else _tensor_bytes(g)
+              for i, g in enumerate(_outputs(got)))
+    res = {"max_abs_err": None, "ms": None, "plain_ms": None,
+           "bytes": nbytes, "bound_ms": 1000 * nbytes / HBM_BYTES_PER_S}
+    want = None
     if run_plain:
         t0 = time.perf_counter()
         want = plain(*args, **kw)
         _sync()
         res["plain_ms"] = 1000 * (time.perf_counter() - t0)
-        for i, (w, g) in enumerate(zip(want, got)):
+        pairs = list(zip(_outputs(want), _outputs(got)))
+        for i, (w, g) in enumerate(pairs):
             if not torch.equal(w, g):
                 raise AssertionError(
                     f"{name} kernel != plain version: output {i}")
-        res["max_abs_err"] = max(_max_abs_err(w, g)
-                                 for w, g in zip(want, got))
+        res["max_abs_err"] = max(_max_abs_err(w, g) for w, g in pairs)
     if timed:
         res["ms"] = _events_ms(lambda: kernel(*args, **kw), 5)
-    return got, res
+    return got, want, res
+
+
+def check_prefix(name, want, got) -> int:
+    """A launch on a prefix of a bucket's lanes (`got`) against the plain
+    outputs of the whole bucket (`want`): each output of `got` must equal
+    the same-shaped leading block of its counterpart (lanes, steps and
+    rows are prefixes; padding past a lane's counts is 0 in both).
+    Returns the max abs error (0); raises on any difference."""
+    err = 0
+    for i, (w, g) in enumerate(zip(_outputs(want), _outputs(got))):
+        w = w[tuple(slice(0, n) for n in g.shape)]
+        if not torch.equal(w, g):
+            raise AssertionError(f"{name}: the 64-lane launch differs from "
+                                 f"the plain version, output {i}")
+        err = max(err, _max_abs_err(w, g))
+    return err
 
 
 def _kernels():
     """The kernel wrappers and their plain versions, by name."""
-    from wvpk_torch.ops import decorr, decorr_cuda, entropy, entropy_cuda, \
-        post, wvc_cuda, wvx_cuda
+    from wvpk_torch.ops import decorr, decorr_cuda, dsd, dsd_cuda, \
+        entropy, entropy_cuda, post, wvc_cuda, wvx_cuda
 
     return {
         "entropy": (entropy_cuda.entropy_decode_cuda,
@@ -297,6 +371,10 @@ def _kernels():
                        decorr.decorr_post_wvc),
         "wvc": (wvc_cuda.wvc_corrections_cuda, entropy.wvc_corrections),
         "wvx": (wvx_cuda.wvx_inject_cuda, post.wvx_inject),
+        "dsd_fast": (dsd_cuda.dsd_fast_decode_cuda,
+                     dsd.dsd_fast_decode_bytes),
+        "dsd_high": (dsd_cuda.dsd_high_decode_cuda,
+                     dsd.dsd_high_decode_bytes),
     }
 
 
@@ -322,8 +400,10 @@ def compare_bucket(bucket, device, timed, run_plain=True):
     entropy kernel's hybrid profile, wvc buckets the entropy kernel's wvc
     profile, the correction scan and the decorrelation kernel's wvc arm,
     wvx buckets the wvx injection (its entropy and decorrelation kernels
-    only feed it: the lossless phase holds them). Returns {kernel name:
-    {max_abs_err, ms, plain_ms}}."""
+    only feed it: the lossless phase holds them). Returns ({kernel name:
+    {max_abs_err, ms, plain_ms, bytes, bound_ms}}, {kernel name: (its
+    outputs, the plain version's or None)})."""
+    from wvpk_torch.engine.pipeline import _bucket_bps
     from wvpk_torch.engine.staging import bucket_tensors
     from wvpk_torch.ops.post import mask_muted
 
@@ -331,76 +411,89 @@ def compare_bucket(bucket, device, timed, run_plain=True):
     t = bucket_tensors(bucket, device)
     prof = bucket.profile
     args, kw = _entropy_io(t, prof)
-    out = {}
+    sts = bucket.states
+    # the bytes the lanes hold: each lane's stream; its samples as int32
+    # (residuals, corrections, intervals) and at the width the decode
+    # delivers them (bytes per sample; 4 for float)
+    words = {0: sum(len(st.wvbits or b"") for st in sts)}
+    values = int(bucket.nsamples.sum()) * (1 if prof.mono else 2)
+    samples = 4 * values
+    delivered = (_bucket_bps(bucket) or 4) * values
+    out, io = {}, {}
+
+    def pair(key, name, args, kw, held, **need):
+        got, want, res = check_pair(name, *k[key], args, kw, timed and held,
+                                    run_plain and held, **need)
+        if held:
+            out[key], io[key] = res, (got, want)
+        return got
+
     if prof.has_wvc:
-        (res, mc, base, broke, _), out["entropy_wvc"] = check_pair(
-            "entropy[hybrid_wvc]", *k["entropy_wvc"], args, kw, timed,
-            run_plain)
-        corr, out["wvc"] = check_pair(
-            "wvc_corrections", *k["wvc"], (t["wvc_words"], mc, base, res),
-            {}, timed, run_plain)
+        res, mc, base, broke, _ = pair(
+            "entropy_wvc", "entropy[hybrid_wvc]", args, kw, True,
+            need=words, out_need={0: samples, 1: samples, 2: samples})
+        corr = pair("wvc", "wvc_corrections",
+                    (t["wvc_words"], mc, base, res), {}, True,
+                    need={0: sum(len(st.wvcbits or b"") for st in sts),
+                          1: samples, 2: samples, 3: samples},
+                    out_need={0: samples})
         dargs = _decorr_args(t, res)
-        _, out["decorr_wvc"] = check_pair(
-            "decorr_post[wvc]", *k["decorr_wvc"],
-            dargs[:1] + (corr,) + dargs[1:], dict(mono=prof.mono), timed,
-            run_plain)
+        pair("decorr_wvc", "decorr_post[wvc]",
+             dargs[:1] + (corr,) + dargs[1:], dict(mono=prof.mono), True,
+             need={0: samples, 1: samples}, out_need={0: delivered})
     else:
         hold = not prof.has_wvx
-        (res, broke, _), ent = check_pair(
-            "entropy", *k["entropy"], args, dict(kw, hybrid=prof.hybrid),
-            timed and hold, run_plain and hold)
-        if hold:
-            out["entropy"] = ent
+        res, broke, _ = pair("entropy", "entropy", args,
+                             dict(kw, hybrid=prof.hybrid), hold, need=words,
+                             out_need={0: samples})
         if not prof.hybrid:
-            (dec, _crc, first_bad), dres = check_pair(
-                "decorr_post", *k["decorr"], _decorr_args(t, res),
-                dict(mono=prof.mono), timed and hold, run_plain and hold)
-            if hold:
-                out["decorr"] = dres
+            dec, _crc, first_bad = pair(
+                "decorr", "decorr_post", _decorr_args(t, res),
+                dict(mono=prof.mono), hold, need={0: samples},
+                out_need={0: delivered})
     if broke.any():
         raise AssertionError("corpus lanes hit an EOF break")
     if prof.has_wvx:
         dec, _ = mask_muted(dec, t["nsamples"], broke, first_bad)
         fs = t["false_stereo"] if t["false_stereo"].any() else None
-        _, out["wvx"] = check_pair(
-            "wvx_inject", *k["wvx"],
-            (dec, t["nsamples"], t["wvx_words"], t["wvx_start_bit"],
-             t["wvx_start_bc"], t["sent_bits"], t["max_width"],
-             t["int32_zod"], fs), {}, timed, run_plain)
-    return out
+        pair("wvx", "wvx_inject",
+             (dec, t["nsamples"], t["wvx_words"], t["wvx_start_bit"],
+              t["wvx_start_bc"], t["sent_bits"], t["max_width"],
+              t["int32_zod"], fs), {}, True,
+             need={0: samples, 2: sum(len(st.wvxbits or b"") for st in sts)},
+             out_need={0: delivered})
+    return out, io
 
 
 def compare_phase(name, states, device, slice_of=None):
-    """compare_bucket on a 64-lane slice, then at the phase's largest
-    bucket (the main path's shape), timed. The slice comes from that
-    bucket, or from the bucket `slice_of(buckets)` picks. A plain version
-    that took over PLAIN_LIMIT_S on the 64 lanes is not run again at the
-    full bucket: its time and check stay the 64-lane ones (marked by
-    plain_lanes)."""
+    """compare_bucket at the phase's largest bucket (the main path's
+    shape), timed, then each kernel launched on a 64-lane slice, timed.
+    The slice comes from that bucket and is held against the full run's
+    plain outputs of its lanes, or from the bucket `slice_of(buckets)`
+    picks (another profile), which runs the plain versions itself."""
     from wvpk_torch.engine.staging import group_blocks
 
     buckets = group_blocks(states)
     b = max(buckets, key=lambda x: len(x.states))
-    src = slice_of(buckets) if slice_of else b
-    slice64 = compare_bucket(group_blocks(src.states[:64])[0], device, False)
-    print(json.dumps({"phase": f"{name}_kernels_vs_plain_64_lanes",
-                      "profile": _profile_name(src.profile),
-                      "results": slice64}))
-    slow = [k for k, v in slice64.items()
-            if v["plain_ms"] > 1000 * PLAIN_LIMIT_S]
-    full = compare_bucket(b, device, True, run_plain=not slow)
-    for k in full:
-        full[k]["plain_lanes"] = len(b.states)
-        if slow:
-            full[k]["plain_ms"] = slice64[k]["plain_ms"]
-            full[k]["max_abs_err"] = slice64[k]["max_abs_err"]
-            full[k]["plain_lanes"] = 64
+    full, io = compare_bucket(b, device, True)
     print(json.dumps({"phase": f"{name}_kernels_vs_plain_full_bucket",
                       "profile": _profile_name(b.profile),
                       "buckets": [len(x.states) for x in buckets],
                       "lanes": len(b.states), "T": b.profile.nsamples_cap,
                       "words_per_lane": int(b.words.shape[1]),
                       "results": full}))
+    src = slice_of(buckets) if slice_of else b
+    own = src is not b
+    slice64, io64 = compare_bucket(group_blocks(src.states[:64])[0], device,
+                                   True, run_plain=own)
+    if not own:
+        for k, (got, _want) in io64.items():
+            slice64[k]["max_abs_err"] = check_prefix(
+                f"{name} {k}", io[k][1], got)
+    print(json.dumps({"phase": f"{name}_kernels_vs_plain_64_lanes",
+                      "profile": _profile_name(src.profile),
+                      "plain": "own run" if own else "the full bucket's",
+                      "results": slice64}))
     return full
 
 
@@ -417,21 +510,27 @@ def _profile_name(prof) -> str:
 
 
 def _counters():
-    from wvpk_torch.ops import decorr_cuda, entropy_cuda, wvc_cuda, wvx_cuda
+    from wvpk_torch.ops import decorr_cuda, dsd_cuda, entropy_cuda, \
+        wvc_cuda, wvx_cuda
 
     return {"entropy": entropy_cuda.entropy_decode_cuda,
             "entropy_wvc": entropy_cuda.entropy_decode_wvc_cuda,
             "decorr": decorr_cuda.decorr_post_cuda,
             "decorr_wvc": decorr_cuda.decorr_post_wvc_cuda,
             "wvc": wvc_cuda.wvc_corrections_cuda,
-            "wvx": wvx_cuda.wvx_inject_cuda}
+            "wvx": wvx_cuda.wvx_inject_cuda,
+            "dsd_fast": dsd_cuda.dsd_fast_decode_cuda,
+            "dsd_high": dsd_cuda.dsd_high_decode_cuda}
 
 
-def decode_phase(name, states, frames, device, expect, check):
+def decode_phase(name, states, frames, device, expect, check,
+                 rate_key="msamples_per_s", realtime=None):
     """decode_states on the phase's corpus: every launch count set to 0,
     one warm-up and three timed calls, the counts read; each kernel in
     `expect` must have launched. `check(results)` raises on a wrong
-    result and returns a dict for the phase line."""
+    result and returns a dict for the phase line. The rate is `frames`
+    per second in millions; with `realtime` (frames a second of audio)
+    also as a realtime factor."""
     from wvpk_torch.engine import decode_states
 
     counters = _counters()
@@ -456,8 +555,10 @@ def decode_phase(name, states, frames, device, expect, check):
         raise AssertionError(f"{name}: main path skipped a kernel: "
                              f"{launches}")
     info = check(results)
+    if realtime:
+        info["realtime_x"] = [r * 1e6 / realtime for r in rates]
     print(json.dumps({"phase": f"{name}_decode_states", "warmup": 1,
-                      "msamples_per_s": rates, "frames": frames,
+                      rate_key: rates, "frames": frames,
                       "blocks": len(states), **info, "launches": launches,
                       "peak_device_bytes":
                           torch.cuda.max_memory_allocated()}))
@@ -477,7 +578,7 @@ def _flags(results, want_wvc=False):
 def _probe(results, states, per_file):
     """The scalar oracle on a few blocks: first, a file's last, middle,
     last of all."""
-    from wvpk.ref import decode_block
+    from wvpk_torch.ref import decode_block
 
     probe = sorted({0, per_file[0] - 1, len(states) // 2, len(states) - 1})
     for i in probe:
@@ -560,10 +661,11 @@ def stage_breakdown(states, device):
     return marks
 
 
-def run_cli(files, device):
+def run_cli(files, device, raw=False):
     """The CLI on several files in one process: `files` maps a name to
-    (.wv bytes, .wvc bytes or None, expected .wav bytes). Each .wav must
-    equal its expected bytes."""
+    (.wv bytes, .wvc bytes or None, expected output bytes). Each output
+    (a .wav, or with `raw` the container-less bytes the CLI writes under
+    the same name) must equal its expected bytes."""
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     paths = []
@@ -578,15 +680,16 @@ def run_cli(files, device):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "wvpk_torch.cli", *paths, "-q", "--device",
-         str(device)], cwd=REPO, capture_output=True, text=True, timeout=600)
+         str(device), *(["--raw"] if raw else [])], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
     secs = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"CLI exited {proc.returncode}: {proc.stderr}")
     for name, (_wv, _wvc, want) in files.items():
         with open(os.path.join(work, name + ".wav"), "rb") as f:
             if f.read() != want:
-                raise AssertionError(f"CLI .wav of {name} differs from "
-                                     "the header + source samples")
+                raise AssertionError(f"CLI output of {name} differs from "
+                                     "the expected bytes")
     return secs
 
 
@@ -615,7 +718,7 @@ def phase_lossless(dev):
                             check_exact(states, per_file, pcms))
     print(json.dumps({"phase": "lossless_stage_seconds",
                       "stages": stage_breakdown(states, dev)}))
-    return full, launches, (files[0], pcms[0])
+    return full, launches, (files, pcms)
 
 
 def phase_hybrid(dev):
@@ -633,8 +736,8 @@ def phase_hybrid(dev):
         "hybrid", states, dev, slice_of=lambda buckets: next(
             b for b in buckets if b.profile.hybrid_balance))
     mono_states, _ = parse_corpus(make_mono_hybrid(), 3)
-    mono = compare_bucket(max(group_blocks(mono_states),
-                              key=lambda x: len(x.states)), dev, True)
+    mono, _io = compare_bucket(max(group_blocks(mono_states),
+                                   key=lambda x: len(x.states)), dev, True)
     print(json.dumps({"phase": "hybrid_mono_kernels_vs_plain",
                       "lanes": len(mono_states), "results": mono}))
     launches = decode_phase("hybrid", states, frames, dev,
@@ -682,8 +785,267 @@ def phase_float_wvx(dev, wvx_futures):
     return full, launches, float_file
 
 
+def sigma_delta(seed, n_bytes, mono=False):
+    """DSD64 byte-samples (n_bytes, 1 or 2) uint8: each channel a
+    first-order sigma-delta modulation (bits = diff(floor(cumsum((x +
+    1) / 2)))) of two tones plus noise in [-0.5, 0.5], computed at the
+    1-bit rate and packed MSB-first."""
+    rng = np.random.default_rng(seed)
+    n = 8 * n_bytes
+    t = np.arange(n) / DSD_RATE
+    chans = []
+    for c in range(1 if mono else 2):
+        f1, f2 = 300 + 97 * ((seed + c) % 11), 2500 + 331 * ((seed + c) % 7)
+        x = (0.3 * np.sin(2 * np.pi * f1 * t)
+             + 0.12 * np.sin(2 * np.pi * f2 * t) + rng.normal(0, 0.02, n))
+        bits = np.diff(np.floor(np.cumsum((np.clip(x, -0.5, 0.5) + 1) / 2)),
+                       prepend=0).astype(np.uint8)
+        chans.append(np.packbits(bits, bitorder="big"))
+    return np.stack(chans, axis=1)
+
+
+def make_dsd(mode, history_bits, seed, random=False, mono=False):
+    """One second of DSD64 encoded with wvpk_torch.testgen at 4096
+    byte-samples a block: sigma-delta content, or uniform random bytes.
+    Runs in a worker process. Returns (.wv bytes, source (n, ch))."""
+    from wvpk_torch.testgen import encode_dsd_file
+
+    n = DSD_RATE // 8
+    if random:
+        src = np.random.default_rng(seed).integers(
+            0, 256, (n, 1 if mono else 2)).astype(np.uint8)
+    else:
+        src = sigma_delta(seed, n, mono)
+    kw = {} if history_bits is None else {"history_bits": history_bits}
+    return encode_dsd_file(src.astype(np.int64), mode, mono=mono,
+                           block_samples=DSD_BLOCK, **kw), src
+
+
+def submit_dsd(pool):
+    """The DSD corpus' encodes, queued on the worker pool: {group name:
+    [futures]}."""
+    jobs = {}
+    for g, (name, mode, hb) in enumerate(DSD_GROUPS):
+        jobs[name] = [pool.submit(make_dsd, mode, hb, 9000 + 100 * g + i,
+                                  i >= DSD_SIGNALS - DSD_RANDOM)
+                      for i in range(DSD_SIGNALS)]
+    for k, (name, mode, mono, hb) in enumerate(DSD_EXTRA):
+        jobs[name] = [pool.submit(make_dsd, mode, hb, 9900 + k, False,
+                                  mono)]
+    return jobs
+
+
+def _largest_dsd_group(states):
+    from wvpk_torch.engine.dsd_pipeline import group_dsd
+
+    groups = group_dsd(states)
+    return max(groups, key=lambda g: len(g.sts)), groups
+
+
+def _dsd_inputs(g, device):
+    """A profile group's staged kernel inputs, as the pipeline stages
+    them: (kernel and plain version, args, keywords)."""
+    from wvpk_torch.engine.dsd_pipeline import group_tensors
+
+    t = group_tensors(g, device)
+    prof = g.prof
+    if prof.mode == 1:
+        return (_kernels()["dsd_fast"],
+                (t["data"], t["nbytes"], t["summed"], t["value0"],
+                 t["nvals"]),
+                dict(bins=prof.bins, mono=prof.mono, nsteps=g.nsteps))
+    return (_kernels()["dsd_high"],
+            (t["data"], t["nbytes"], t["ptable"], t["filters"],
+             t["value0"], t["nsamples"]), dict(mono=prof.mono,
+                                               nsteps=g.nsteps))
+
+
+def _visited_rows(codes, nvals, bins, lag):
+    """Mode 1: how many (lane, history bin) table rows the decode of
+    `codes` (L, W) uint8 reads. Step t reads the row of the code `lag`
+    steps back (1 mono, 2 stereo; row 0 before that)."""
+    L, W = codes.shape
+    hist = codes.to(torch.int64) & (bins - 1)
+    pos = torch.arange(W, device=codes.device)[None, :]
+    used = (pos < nvals.to(torch.int64)[:, None] - lag).to(torch.int64)
+    seen = torch.zeros(L, bins, dtype=torch.int64, device=codes.device)
+    seen.scatter_add_(1, hist, used)
+    seen[:, 0] += (nvals > 0).to(torch.int64)
+    return int((seen > 0).sum())
+
+
+def _dsd_need(g, args, codes):
+    """The bytes a DSD launch must move (check_pair's need, out_need):
+    each lane's payload bytes, its 32-bit counts and window, of mode 1's
+    tables the rows the data visits (1 KB each), of mode 3 the ptable
+    (1 KB a lane) and the f1..f6, factor words of its channels; out, its
+    byte-values at 1 byte, crc (and err) per lane."""
+    L = len(g.sts)
+    C = 1 if g.prof.mono else 2
+    need = {0: int(g.arrays["nbytes"].sum()), 1: 4 * L, 3: 4 * L}
+    out_need = {0: int(g.nvals.sum())}
+    if g.prof.mode == 1:
+        need[2] = 1024 * _visited_rows(codes, args[4], g.prof.bins,
+                                       1 if g.prof.mono else 2)
+        need[4] = 4 * L
+        out_need.update({1: L, 2: 4 * L})
+    else:
+        need.update({2: 1024 * L, 3: 28 * C * L, 4: 4 * L, 5: 4 * L})
+        out_need[1] = 4 * L
+    return need, out_need
+
+
+def compare_dsd(name, states, device):
+    """The DSD kernel at the largest profile group of `states` (the main
+    path's launch) against its plain version, timed, then launched on the
+    group's first 64 lanes, timed and held against the plain outputs of
+    those lanes. A plain decoder's time grows with the steps, not the
+    lanes (one small op per step, whatever the lane count), so it runs
+    once, at the full group. Returns {max_abs_err, ms, plain_ms, bytes,
+    bound_ms, ...}."""
+    from wvpk_torch.engine.dsd_pipeline import group_dsd
+
+    g, groups = _largest_dsd_group(states)
+    (kernel, plain), args, kw = _dsd_inputs(g, device)
+    # one launch first: mode 1's bound counts the table rows its codes
+    # visit (the codes are then held against the plain version)
+    need, out_need = _dsd_need(g, args, kernel(*args, **kw)[0])
+    got, want, res = check_pair(name, kernel, plain, args, kw, True,
+                                need=need, out_need=out_need)
+    hdr = torch.tensor([st.header.crc for st in g.sts], dtype=torch.int32)
+    if not torch.equal(got[-1].cpu(), hdr):
+        raise AssertionError(f"{name}: kernel CRCs differ from the headers")
+    n = min(64, len(g.sts))
+    (g64,) = group_dsd(g.sts[:n])
+    _pair, args64, kw64 = _dsd_inputs(g64, device)
+    got64 = kernel(*args64, **kw64)
+    _sync()
+    res.update(lanes=len(g.sts), nsteps=g.nsteps,
+               payload_cap=int(g.data.shape[1]), plain_lanes=len(g.sts),
+               slice_lanes=n,
+               slice_max_abs_err=check_prefix(name, want, got64),
+               slice_ms=_events_ms(lambda: kernel(*args64, **kw64), 5),
+               profile_groups=[len(x.sts) for x in groups])
+    print(json.dumps({"phase": f"{name}_kernel_vs_plain", **res}))
+    return res
+
+
+def check_dsd(states, files):
+    """0 CRC errors, 0 mutes, every file byte-exact against its source
+    bytes and the scalar oracle agreeing on probe blocks. `files` is
+    [(block count, source (n, ch))] in corpus order."""
+    def check(results):
+        info = _flags(results)
+        pos = 0
+        for k, (nblk, src) in enumerate(files):
+            got = np.concatenate([r.samples for r in results[pos:pos + nblk]])
+            if not np.array_equal(got, src):
+                raise AssertionError(f"DSD file {k} is not byte-exact")
+            pos += nblk
+        info["byte_exact"] = True
+        info["oracle_blocks"] = _probe(results, states, [files[0][0]])
+        return info
+    return check
+
+
+def dsd_stage_breakdown(states, device):
+    """One DSD decode split into its stages, each closed by a
+    synchronize: seconds per stage."""
+    from wvpk_torch.engine import dsd_pipeline as dp
+    from wvpk_torch.engine.pipeline import _fetch_arrays
+
+    marks = {}
+    t0 = time.perf_counter()
+
+    def mark(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        marks[name] = marks.get(name, 0.0) + now - t0
+        t0 = now
+
+    groups = dp.group_dsd(states)
+    mark("staging")
+    launched = []
+    for g in groups:
+        t = dp.group_tensors(g, device)
+        mark("h2d")
+        outs, crc, err = dp.decode_group(g, t)
+        mark("decode_kernels")
+        launched.append(dp.deliver_group(g, outs, crc, err))
+        mark("deliver")
+    fetched = _fetch_arrays(dp.fetch_list(launched))
+    mark("d2h")
+    dp.finalize_dsd_groups(launched, fetched)
+    mark("finalize")
+    return marks
+
+
+def phase_dsd(dev, jobs, lossless):
+    """Phase 7. `jobs` from submit_dsd; `lossless` the (files, pcms) of
+    the lossless corpus, whose first 16 files join the mixed call.
+    Returns ({kernel row: results}, launches, a mode-3 file and its
+    source for the CLI)."""
+    from wvpk_torch.container import parse_blocks
+
+    t0 = time.perf_counter()
+    groups, files, states = {}, [], []
+    for name, futs in jobs.items():
+        sts = []
+        for f in futs:
+            wv, src = f.result()
+            blocks = [b.state for b in parse_blocks(wv)]
+            files.append((len(blocks), src))
+            sts += blocks
+        groups[name] = sts
+        states += sts
+    vals = sum(src.size for _n, src in files)
+    print(json.dumps({
+        "phase": "dsd_corpus", "files": len(files), "blocks": len(states),
+        "lanes_per_group": {k: len(v) for k, v in groups.items()},
+        "byte_values": vals, "seconds_of_dsd64_stereo":
+            vals / DSD64_STEREO_BYTEVALS_PER_S,
+        "bytes": sum(len(f.result()[0]) for v in jobs.values() for f in v),
+        "seconds": time.perf_counter() - t0}))
+
+    rows = {name: compare_dsd(name, groups[name], dev)
+            for name in [g[0] for g in DSD_GROUPS + DSD_EXTRA[:2]]}
+
+    launches = decode_phase(
+        "dsd", states, vals, dev, ("dsd_fast", "dsd_high"),
+        check_dsd(states, files), rate_key="mbytevals_per_s",
+        realtime=DSD64_STEREO_BYTEVALS_PER_S)
+
+    # one call mixing 16 lossless files with the DSD corpus
+    from wvpk_torch.engine import decode_states
+
+    l_files, l_pcms = lossless
+    l_states, l_per_file = parse_corpus(l_files, 16)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    results = decode_states(l_states + states, dev)
+    torch.cuda.synchronize()
+    mixed_s = time.perf_counter() - t1
+    mixed = {k: fn.launches for k, fn in counters.items()}
+    if min(mixed[k] for k in ("entropy", "decorr", "dsd_fast",
+                              "dsd_high")) < 1:
+        raise AssertionError(f"mixed call skipped a kernel: {mixed}")
+    check_exact(l_states, l_per_file, l_pcms, probe=False)(
+        results[:len(l_states)])
+    info = check_dsd(states, files)(results[len(l_states):])
+    print(json.dumps({"phase": "dsd_mixed_with_lossless",
+                      "blocks": len(results), "seconds": mixed_s,
+                      "launches": mixed, **info}))
+    print(json.dumps({"phase": "dsd_stage_seconds",
+                      "stages": dsd_stage_breakdown(states, dev)}))
+    wv, src = jobs["dsd_high"][0].result()
+    return rows, launches, (wv, src)
+
+
 def _wav(pcm, bits, nbytes, fmt_tag=1, body=None):
-    from wvpk.io.wav import make_wav_header
+    from wvpk_torch.io.wav import make_wav_header
 
     hdr = make_wav_header(len(pcm), pcm.shape[1], 44100, bits, nbytes,
                           fmt_tag=fmt_tag)
@@ -719,18 +1081,23 @@ def main() -> int:
                       "nvcc_seconds": _build.build_seconds,
                       "ptxas": ptxas}))
 
-    # the wvx files encode in worker processes while the card works
+    # the wvx and DSD files encode in worker processes while the card
+    # works
     with ProcessPoolExecutor(
             max_workers=len(WVX_FILES),
             mp_context=multiprocessing.get_context("spawn")) as pool:
         wvx_futures = [pool.submit(make_wvx, i) for i in range(len(WVX_FILES))]
-        lossless, l_launches, (l_file, l_pcm) = phase_lossless(dev)
+        dsd_jobs = submit_dsd(pool)
+        lossless, l_launches, (l_files, l_pcms) = phase_lossless(dev)
+        l_file, l_pcm = l_files[0], l_pcms[0]
         hybrid, h_launches = phase_hybrid(dev)
         wvc, c_launches, ((c_wv, c_wvc), c_pcm) = phase_wvc(dev)
         wvx, x_launches, (f_file, f_pcm, f_exp) = phase_float_wvx(
             dev, wvx_futures)
+        dsd, d_launches, (d_wv, d_src) = phase_dsd(dev, dsd_jobs,
+                                                   (l_files, l_pcms))
 
-    from wvpk.io.pcm import format_samples
+    from wvpk_torch.io.pcm import format_samples
 
     cli_s = run_cli({
         "lossless": (l_file, None, _wav(l_pcm, 16, 2)),
@@ -739,8 +1106,11 @@ def main() -> int:
                                      body=format_samples(
                                          f_pcm, 4, float_norm_exp=f_exp)))},
         dev)
+    raw_s = run_cli({"dsd_high": (d_wv, None, d_src.tobytes())}, dev,
+                    raw=True)
     print(json.dumps({"phase": "cli", "files": 3, "byte_exact": True,
-                      "seconds": cli_s}))
+                      "seconds": cli_s, "dsd_raw_byte_exact": True,
+                      "dsd_raw_seconds": raw_s}))
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
@@ -760,12 +1130,21 @@ def main() -> int:
          wvx["wvx"]),
         ("wvc_corrections", "wvc.cu", "entropy.py:352", c_launches["wvc"],
          wvc["wvc"]),
+        ("dsd_fast_decode[bins4]", "dsd_fast.cu", "dsd_pallas.py:422",
+         d_launches["dsd_fast"], dsd["dsd_fast_bins4"]),
+        ("dsd_fast_decode[bins32]", "dsd_fast.cu", "dsd_pallas.py:422",
+         d_launches["dsd_fast"], dsd["dsd_fast_bins32"]),
+        ("dsd_high_decode", "dsd_high.cu", "dsd_pallas.py:78",
+         d_launches["dsd_high"], dsd["dsd_high"]),
     ]
+    # no PyTorch or CUDA library call computes these decoders: library_ms
+    # is null; the bound is the bytes moved (integer work only)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"wvpk_torch/csrc/{src}",
          "replaces": f"wvpk/ops/{rep}", "launches": n,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": "bytes", "library_ms": None}
         for name, src, rep, n, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

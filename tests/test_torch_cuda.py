@@ -1,8 +1,9 @@
 """wvpk_torch's CUDA kernels vs their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. They import
-no jax (the machine with the card has none), so run them without the
-suite's conftest:
+no jax (the machine with the card has none) and make, parse and check
+their inputs with the port's own testgen, container and ref, so run them
+without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -14,13 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from wvpk.container import parse_blocks
-from wvpk.container.blocks import pair_wvc
-from wvpk.ref import decode_block
-from wvpk.testgen import EncodeSpec, encode_file, encode_multichannel
-from wvpk.testgen.encoder import encode_blocks
+from wvpk_torch.container import parse_blocks
+from wvpk_torch.container.blocks import pair_wvc
 from wvpk_torch.engine import decode_states
+from wvpk_torch.engine.dsd_pipeline import group_dsd, group_tensors
 from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+from wvpk_torch.ops.dsd import dsd_fast_decode_bytes, dsd_high_decode_bytes
+from wvpk_torch.ops.dsd_cuda import dsd_fast_decode_cuda, \
+    dsd_high_decode_cuda
 from wvpk_torch.ops.decorr import decorr_post, decorr_post_wvc
 from wvpk_torch.ops.decorr_cuda import decorr_post_cuda, \
     decorr_post_wvc_cuda
@@ -30,6 +32,10 @@ from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda, \
 from wvpk_torch.ops.post import wvx_inject
 from wvpk_torch.ops.wvc_cuda import wvc_corrections_cuda
 from wvpk_torch.ops.wvx_cuda import wvx_inject_cuda
+from wvpk_torch.ref import decode_block
+from wvpk_torch.testgen import EncodeSpec, encode_dsd_file, encode_file, \
+    encode_multichannel
+from wvpk_torch.testgen.encoder import encode_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -260,12 +266,13 @@ FAMILIES = ("any", "hybrid", "wvx", "float", "wvc", "int32")
 
 
 def pcm_case(seed):
-    """A random PCM file (wvpk.testgen.fuzzspec: mono, false stereo,
-    joint, 1-16 terms incl. cross terms, 8-32 bit, shift, block
+    """A random PCM file (specs from wvpk.testgen.fuzzspec: mono, false
+    stereo, joint, 1-16 terms incl. cross terms, 8-32 bit, shift, block
     checksums), sometimes with a corrupted byte. Seeds take the families
     in turn: any (random_spec's own mix), hybrid, int32+wvx, float, a
     hybrid file paired with its .wvc (random_wvc_spec) and int32
-    zeros/ones/dups. Returns (blocks, pcm, spec)."""
+    zeros/ones/dups. Returns (.wv bytes, .wvc bytes or None, pcm,
+    spec)."""
     from wvpk.testgen.fuzzspec import random_pcm, random_spec, \
         random_wvc_spec
 
@@ -294,10 +301,40 @@ def pcm_case(seed):
         data = bytearray(data)
         data[int(rng.integers(64, len(data)))] ^= int(rng.integers(1, 256))
         data = bytes(data)
-    blocks = parse_blocks(data)
-    if wvc:
-        pair_wvc(blocks, b"".join(sink))
-    return blocks, pcm, spec
+    return data, b"".join(sink) if wvc else None, pcm, spec
+
+
+def parse_case(data, wvc, parse=parse_blocks, pair=pair_wvc):
+    """Blocks of a case's bytes, its .wvc paired, parsed by `parse` (the
+    port's container by default, wvpk's where a test passes it)."""
+    blocks = parse(data)
+    if wvc is not None:
+        pair(blocks, wvc)
+    return blocks
+
+
+def dsd_case(seed):
+    """A random DSD file: mode 0, 1 or 3, mono or stereo, random block
+    size, for mode 1 history bits 0-5; random bytes or run-heavy ones
+    (large probability skew), sometimes with a corrupted byte. Returns
+    (bytes, source bytes (n, ch), mode)."""
+    rng = np.random.default_rng(5000 + seed)
+    mode = (0, 1, 3)[seed % 3]
+    mono = bool(rng.random() < 0.4)
+    ch = 1 if mono else 2
+    n = int(rng.integers(100, 700))
+    src = rng.integers(0, 256, (n, ch))
+    if rng.random() < 0.5:
+        runs = rng.choice([0x55, 0xAA, 0x33, 0x0F], (n, ch))
+        src = np.where(rng.random((n, ch)) < 0.7, runs, src)
+    kw = {"history_bits": int(rng.integers(0, 6))} if mode == 1 else {}
+    data = encode_dsd_file(src.astype(np.int64), mode, mono=mono,
+                           block_samples=int(rng.integers(64, 400)), **kw)
+    if rng.random() < 0.3:
+        data = bytearray(data)
+        data[int(rng.integers(64, len(data)))] ^= int(rng.integers(1, 256))
+        data = bytes(data)
+    return data, src, mode
 
 
 def lossless_case(seed):
@@ -357,9 +394,89 @@ def test_decode_states_cuda_matches_cpu_and_oracle(cuda):
 def test_fuzz_every_pcm_family_cuda_matches_cpu(cuda, seed):
     """Random files of every PCM family, .wvc pairs included: the
     kernels' decode equals the plain versions', flags included."""
-    blocks, _pcm, spec = pcm_case(seed)
-    states = [b.state for b in blocks]
+    data, wvc, _pcm, spec = pcm_case(seed)
+    states = [b.state for b in parse_case(data, wvc)]
     got = decode_states(states, device=cuda)
     want = decode_states(states, device="cpu")
     for w, g in zip(want, got):
         _same(w, g, f"seed {seed} {spec}")
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_fuzz_dsd_cuda_matches_cpu(cuda, seed):
+    """Random DSD files of every mode, corrupted ones included: the
+    kernels' decode equals the plain versions', flags included, and the
+    source bytes wherever a block decodes cleanly."""
+    data, src, mode = dsd_case(seed)
+    blocks = parse_blocks(data)
+    states = [b.state for b in blocks]
+    got = decode_states(states, device=cuda)
+    want = decode_states(states, device="cpu")
+    for blk, w, g in zip(blocks, want, got):
+        _same(w, g, f"seed {seed} mode {mode}")
+        if blk.header.block_samples and not g.crc_error:
+            lo = blk.header.block_index
+            np.testing.assert_array_equal(
+                g.samples, src[lo:lo + blk.header.block_samples])
+
+
+def dsd_group(mode, mono, seed, lanes=3, nsamp=500, smooth=False,
+              **kw):
+    """Block states of `lanes` one-block DSD files of one profile, each
+    37 samples shorter than the one before (one group pads to its longest
+    lane; the shorter rows end inside a 4-byte word)."""
+    rng = np.random.default_rng(seed)
+    ch = 1 if mono else 2
+    states = []
+    for k in range(lanes):
+        d = rng.integers(0, 256, (nsamp - 37 * k, ch))
+        if smooth:
+            d = (d % 4) * 0x55
+        states += [b.state for b in parse_blocks(encode_dsd_file(
+            d.astype(np.int64), mode, mono=mono, **kw))
+            if b.state.header.block_samples]
+    return states
+
+
+def dsd_kernel_args(states, device):
+    """The staged inputs of a DSD kernel for one profile group, as
+    engine/dsd_pipeline.py stages them: (args, keywords)."""
+    (g,) = group_dsd(states)
+    t = group_tensors(g, device)
+    prof = g.prof
+    if prof.mode == 1:
+        return ((t["data"], t["nbytes"], t["summed"], t["value0"],
+                 t["nvals"]),
+                dict(bins=prof.bins, mono=prof.mono, nsteps=g.nsteps))
+    return ((t["data"], t["nbytes"], t["ptable"], t["filters"], t["value0"],
+             t["nsamples"]), dict(mono=prof.mono, nsteps=g.nsteps))
+
+
+DSD_KERNELS = {
+    "fast_mono_bins1": (1, True, dict(history_bits=0)),
+    "fast_stereo_bins2": (1, False, dict(history_bits=1)),
+    "fast_stereo_bins8_smooth": (1, False, dict(history_bits=3)),
+    "fast_stereo_bins32": (1, False, dict(history_bits=5)),
+    "high_stereo": (3, False, {}),
+    "high_mono": (3, True, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DSD_KERNELS))
+def test_dsd_kernels_match_plain(cuda, name):
+    """Each DSD kernel instantiation against its plain version on small
+    streams; a clean stream's CRCs equal the block headers'."""
+    mode, mono, kw = DSD_KERNELS[name]
+    states = dsd_group(mode, mono, 100 + len(name), smooth="smooth" in name,
+                       **kw)
+    args, kwargs = dsd_kernel_args(states, cuda)
+    kernel, plain = ((dsd_fast_decode_cuda, dsd_fast_decode_bytes)
+                     if mode == 1 else
+                     (dsd_high_decode_cuda, dsd_high_decode_bytes))
+    got = kernel(*args, **kwargs)
+    want = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    hdr = torch.tensor([st.header.crc for st in states], dtype=torch.int32)
+    assert torch.equal(got[-1].cpu(), hdr)

@@ -26,13 +26,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from wvpk import consts
-from wvpk.config import get_options
-from wvpk.container import Block, parse_blocks
-from wvpk.io.pcm import format_samples
-
+from . import consts
+from .config import get_options
+from .container import Block, parse_blocks
 from .device import resolve
 from .engine import DecodedBlock, decode_states
+from .io.pcm import format_samples
 
 
 @dataclass
@@ -92,7 +91,7 @@ class WavpackContext:
         block whose metadata fails to parse is concealed (None -> zero
         fill + mute downstream), matching the CRC-failure concealment
         tier; the eager path drops such blocks at open already."""
-        from wvpk.container.stream import BlockParseError
+        from .container.stream import BlockParseError
 
         states = []
         for i in flat:
@@ -280,8 +279,8 @@ def _pair_wvc_source(wpc: WavpackContext, wvc_source) -> None:
     raises: a broken correction file degrades to plain hybrid decode. A
     file this function opens is closed again when pairing fails; in
     streaming mode a paired reader stays open until `close()`."""
-    from wvpk.container.blocks import pair_wvc
-    from wvpk.container.stream import WvcReader
+    from .container.blocks import pair_wvc
+    from .container.stream import WvcReader
 
     is_path = (isinstance(wvc_source, str)
                or hasattr(wvc_source, "__fspath__"))
@@ -339,7 +338,7 @@ def WavpackOpenFileInput(source, flags: int = 0,
                      >= get_options().stream_threshold)
     try:
         if streaming:
-            from wvpk.container.stream import LazyBlocks, scan_headers_file
+            from .container.stream import LazyBlocks, scan_headers_file
             f = open(source, "rb") if is_path else source
             headers = scan_headers_file(f)
             wpc.blocks = LazyBlocks(
@@ -368,7 +367,7 @@ def WavpackOpenFileInput(source, flags: int = 0,
         # the trailing zero-sample blocks (RIFF trailer etc. live there);
         # lossy-block flags accrue lazily as blocks decode, matching the
         # reference's per-block unpack_init timing (UnpackUtils.cs:57-64)
-        from wvpk.container.stream import BlockParseError
+        from .container.stream import BlockParseError
         walk = list(range(first + 1))
         tail = len(headers) - 1
         while tail > first and headers[tail].block_samples == 0:
@@ -622,7 +621,7 @@ def WavpackGetMD5Sum(wpc) -> bytes | None:
     the file's final block, so streaming mode parses that block lazily
     on first call (eager mode saw it at open)."""
     if wpc.md5 is None and wpc.streaming and len(wpc.blocks):
-        from wvpk.container.stream import BlockParseError
+        from .container.stream import BlockParseError
         try:
             b = wpc.blocks[len(wpc.blocks) - 1]
         except BlockParseError:
@@ -642,7 +641,7 @@ def WavpackVerifyBlockChecksums(source) -> tuple[int, int, int]:
     path sources are memory-mapped (container/checksum.py)."""
     import os
 
-    from wvpk.container import verify_file_checksums
+    from .container import verify_file_checksums
     if hasattr(source, "__fspath__"):
         source = os.fspath(source)
     if isinstance(source, (str, bytes, bytearray)):

@@ -9,7 +9,10 @@ Single-file mode mirrors the reference demo's output and end checks
 on failure). A sibling `<input>c` correction file is picked up
 automatically, as wvunpack does: hybrid blocks then decode losslessly;
 `--wvc PATH` names another correction file (one input only) and
-`--no-wvc` ignores it. Float streams write an IEEE-float WAV. Batch mode
+`--no-wvc` ignores it. Float streams write an IEEE-float WAV. DSD
+streams write their byte-values: after a stored DSF header the payload is
+re-blocked as DSF, so a .wv wrapping a .dsf decodes back to that file byte
+for byte; `--raw` writes the bytes alone. Batch mode
 decodes many files' .wv streams in one device batch and reports
 throughput. Encoding and the JSON report stay in `python -m wvpk.cli`.
 """
@@ -22,11 +25,9 @@ import time
 
 import numpy as np
 
-from wvpk import consts, trace
-from wvpk.io.pcm import format_samples
-from wvpk.io.wav import make_wav_header, write_wav
-
-from . import api
+from . import api, consts, trace
+from .io.pcm import format_samples
+from .io.wav import make_wav_header, write_wav
 
 
 def decode_one(path: str, out_path: str | None, quiet: bool = False,
@@ -61,7 +62,7 @@ def _decode_open(wpc, path, out_path, quiet, show_trace, raw, verify_md5,
     num_channels = api.WavpackGetNumChannels(wpc)
     bits = api.WavpackGetBitsPerSample(wpc)
     byteps = api.WavpackGetBytesPerSample(wpc)
-    total_samples = api.WavpackGetNumSamples(wpc)
+    total_samples = api.WavpackGetNumSamples(wpc, native=True)
     sample_rate = api.WavpackGetSampleRate(wpc)
     version = api.WavpackGetVersion(wpc)
 
@@ -84,6 +85,7 @@ def _decode_open(wpc, path, out_path, quiet, show_trace, raw, verify_md5,
         if level:
             print(f"{level} compression level")
 
+    is_dsd = bool(api.WavpackGetMode(wpc) & consts.MODE_DSD)
     # float streams format to IEEE float32 on the stream's grid (an
     # extension: the reference demo writes clipped 24-bit ints)
     float_exp = (api.WavpackGetFloatNormExp(wpc)
@@ -98,12 +100,17 @@ def _decode_open(wpc, path, out_path, quiet, show_trace, raw, verify_md5,
         md5er = hashlib.md5()
     buf = np.zeros(consts.SAMPLE_BUFFER_SIZE * num_channels, np.int32)
     out_f = open(out_path, "wb") if out_path else None
+    dsf_writer = None
     try:
         if out_f is not None and not raw:
             # raw mode is container-less: interleaved little-endian PCM
+            # (or the native DSD / float32 bytes) exactly as formatted
             hdr = api.WavpackGetHeader(wpc)
             if hdr:
                 out_f.write(hdr)
+                if is_dsd and api.WavpackGetFileFormat(wpc) \
+                        == consts.FORMAT_DSF:
+                    dsf_writer = _dsf_writer(out_f, hdr, num_channels)
             elif float_exp is not None:
                 out_f.write(make_wav_header(
                     max(total_samples, 0), num_channels, sample_rate, 32, 4,
@@ -121,14 +128,19 @@ def _decode_open(wpc, path, out_path, quiet, show_trace, raw, verify_md5,
                 total_unpacked += got
                 with trace.stage("format"):
                     fmt = api.WavpackFormatSamples(
-                        buf, got * num_channels, byteps,
+                        buf, got * num_channels, byteps, dsd=is_dsd,
                         float_norm_exp=float_exp)
-                if out_f is not None:
+                if dsf_writer is not None:
+                    dsf_writer.append(
+                        buf[:got * num_channels].reshape(got, num_channels))
+                elif out_f is not None:
                     out_f.write(fmt)
                 if md5er is not None:
                     md5er.update(fmt)
         t1 = time.perf_counter()
         if out_f is not None and not raw:
+            if dsf_writer is not None:
+                dsf_writer.finish()
             trailer = api.WavpackGetTrailer(wpc)
             if trailer:
                 out_f.write(trailer)
@@ -170,12 +182,25 @@ def _decode_open(wpc, path, out_path, quiet, show_trace, raw, verify_md5,
     return 0
 
 
+def _dsf_writer(out_f, hdr: bytes, num_channels: int):
+    """A DsfRewriter for a stored DSF header: DSF payloads are
+    channel-interleaved fixed-size blocks (LSB-first bits when the header
+    says so), so the byte-values are re-blocked as they come. None when
+    the header does not parse (the bytes are then written as they are)."""
+    from .io.dsf import DsfRewriter, parse_dsf_header
+
+    try:
+        _c, _r, dbits, _n, bsz = parse_dsf_header(hdr)
+    except ValueError:
+        return None
+    return DsfRewriter(out_f, num_channels, bsz, lsb_first=dbits == 1)
+
+
 def decode_batch(paths: list[str], quiet: bool = False,
                  device: str = "cuda") -> int:
     """Decode many files lane-parallel in ONE device batch: every block of
     every file becomes a lane (the batch analog of WvDemo's serial loop)."""
-    from wvpk.container import parse_blocks
-
+    from .container import parse_blocks
     from .engine import decode_states
 
     t0 = time.perf_counter()
@@ -205,6 +230,7 @@ def decode_batch(paths: list[str], quiet: bool = False,
             total_samples += b.header.block_samples
             chunks.append(format_samples(
                 r.samples, (b.header.flags & consts.BYTES_STORED) + 1,
+                dsd=bool(b.header.flags & consts.DSD_FLAG),
                 float_norm_exp=(b.state.float_norm_exp or None)
                 if b.header.flags & consts.FLOAT_DATA else None))
         hdr0 = blocks[0].header

@@ -17,8 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from wvpk import consts
-
+from .. import consts
 from ..ops.decorr_select import decorr_post_any, decorr_post_wvc_any
 from ..ops.entropy_select import entropy_decode_any, \
     entropy_decode_wvc_any, wvc_corrections_any
@@ -156,6 +155,15 @@ def build_blob(arrays: dict[str, np.ndarray], narrow=frozenset()
                       tuple(int(s) for s in arr.shape), kind))
         off += flat.size
     return np.concatenate(parts), tuple(metas)
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`: on CUDA pinned first and copied without
+    blocking, on the CPU the array itself."""
+    host = torch.from_numpy(arr)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 def unpack_blob(blob: torch.Tensor, metas) -> dict[str, torch.Tensor]:

@@ -1,11 +1,12 @@
-"""The bucket decode pipeline (port of wvpk/engine/pipeline.py, PCM).
+"""The bucket decode pipeline (port of wvpk/engine/pipeline.py).
 
 Per call: parse-side block states -> buckets (host staging) -> per bucket
 one host-to-device blob and its fused program (entropy, decorrelation
 with joint/mute/CRC folded in, wvx injection for int32+wvx buckets, the
 correction scan for hybrid buckets paired with a .wvc, fixup and the byte
-pack), all queued on the device -> ONE batched device-to-host copy for
-every bucket's results -> `DecodedBlock`s on the host. The host only
+pack), and per DSD profile group its decode (dsd_pipeline.py), all queued
+on the device -> ONE batched device-to-host copy for every bucket's and
+group's results -> `DecodedBlock`s on the host. The host only
 parses containers and reassembles outputs (reference UnpackUtils.cs:
 510-686 splits at the same place: unpack_init on the host, the sample
 math on the device).
@@ -18,14 +19,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wvpk import consts, trace
-from wvpk.config import get_options
-from wvpk.container.blockstate import BlockState
-
+from .. import consts, trace
+from ..config import get_options
+from ..container.blockstate import BlockState
 from ..device import resolve
+from .dsd_pipeline import fetch_list, finalize_dsd_groups, launch_dsd_states
 from .fused import DEVICE_FIELDS, WVX_FIELDS, deliver, fused_decode, \
     fused_decode_wvc, fused_decode_wvx
-from .staging import Bucket, bucket_tensors, check_slice, group_blocks
+from .staging import Bucket, bucket_tensors, group_blocks
 
 
 @dataclass
@@ -159,17 +160,19 @@ def _fetch_arrays(arrs: list[torch.Tensor]) -> list[np.ndarray]:
 
 def decode_states(states: list[BlockState],
                   device: str | torch.device = "cuda") -> list[DecodedBlock]:
-    """Decode a list of PCM blocks (any mix of profiles) on `device`.
-    Every bucket is queued first and all results come back in one batched
-    copy. DSD blocks, outside the slice, raise NotImplementedError before
-    any work."""
+    """Decode a list of blocks (any mix of PCM profiles and DSD modes) on
+    `device`. Every PCM bucket and DSD group is queued first, and all
+    results (PCM payloads, packed DSD bytes, CRC/mute tables) come back in
+    one batched copy, so a mixed call pays the fetch latency once."""
     dev = resolve(device)
-    for st in states:
-        check_slice(st)
     results: list[DecodedBlock | None] = [None] * len(states)
     pcm_states, pcm_indices = [], []
+    dsd_states, dsd_indices = [], []
     for i, st in enumerate(states):
-        if st.header.block_samples == 0:
+        if st.flags & consts.DSD_FLAG:
+            dsd_states.append(st)
+            dsd_indices.append(i)
+        elif st.header.block_samples == 0:
             results[i] = DecodedBlock(
                 samples=np.zeros((0, 1), np.int32), crc=-1, crc_x=-1,
                 mute_error=False, crc_error=False)
@@ -179,21 +182,27 @@ def decode_states(states: list[BlockState],
     with trace.stage("staging"):
         buckets = group_blocks(pcm_states) if pcm_states else []
     with trace.stage("launch"):
+        dsd_launched = (launch_dsd_states(dsd_states, dev) if dsd_states
+                        else [])
         launched = [launch_bucket(b, dev) for b in buckets]
     with trace.stage("transfer"):
         fetched = _fetch_arrays([a for lb in launched
-                                 for a in (lb.crcmute, lb.payload)])
+                                 for a in (lb.crcmute, lb.payload)]
+                                + fetch_list(dsd_launched))
     with trace.stage("finalize"):
         for k, lb in enumerate(launched):
             blocks = finalize_bucket(lb, fetched[2 * k], fetched[2 * k + 1])
             for j, res in zip(lb.bucket.indices, blocks):
                 results[pcm_indices[j]] = res
+        for j, res in finalize_dsd_groups(dsd_launched,
+                                          fetched[2 * len(launched):]):
+            results[dsd_indices[j]] = res
     return results
 
 
 def decode_bytes(data: bytes, device: str | torch.device = "cuda"
                  ) -> tuple[list, list[DecodedBlock]]:
     """Parse a .wv byte string and decode every block on `device`."""
-    from wvpk.container import parse_blocks
+    from ..container import parse_blocks
     blocks = parse_blocks(data)
     return blocks, decode_states([b.state for b in blocks], device)

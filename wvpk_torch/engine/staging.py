@@ -17,23 +17,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from wvpk import consts
-from wvpk.config import get_options
-from wvpk.container.blockstate import BlockState
-from wvpk.tables import i32
-
+from .. import consts
+from ..config import get_options
+from ..container.blockstate import BlockState
 from ..ops.bitio import pack_streams
+from ..tables import i32
 from .fused import DEVICE_FIELDS, NARROW, TERM_FIELDS, WVC_FIELDS, \
-    WVX_FIELDS, build_blob, restore_terms, unpack_blob
-
-
-def check_slice(st: BlockState) -> None:
-    """Raise NotImplementedError for a block outside the port's slice
-    (every PCM mode), naming the ROADMAP slice that adds it."""
-    if st.flags & consts.DSD_FLAG:
-        raise NotImplementedError(
-            "wvpk_torch decodes PCM only: DSD blocks wait for the ROADMAP "
-            "DSD slice (queue 1, item 10)")
+    WVX_FIELDS, build_blob, restore_terms, to_device, unpack_blob
 
 
 def _pow2_at_least(n: int, lo: int | None = None) -> int:
@@ -240,8 +230,4 @@ def bucket_tensors(bucket, device: torch.device) -> dict[str, torch.Tensor]:
         arrays["false_stereo"] = np.asarray(
             [bool(st.flags & consts.FALSE_STEREO) for st in bucket.states])
     blob, metas = build_blob(arrays, NARROW)
-    host = torch.from_numpy(blob)
-    if device.type == "cuda":
-        host = host.pin_memory()
-    dev_blob = host.to(device, non_blocking=True)
-    return restore_terms(unpack_blob(dev_blob, metas))
+    return restore_terms(unpack_blob(to_device(blob, device), metas))

@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from wvpk.tables import EXP2_NP, LOG2_NP
+from ..tables import EXP2_NP, LOG2_NP
 
 EXTRA_PAD_WORDS = 8  # room for bounded post-EOF overreads
 PEEK_BITS = 33
@@ -43,7 +43,7 @@ def pack_streams(payloads: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
     bit order within a word) padded with the 0xff EOF fill. Returns
     (words, nbits). Uses wvpk's native C stager when it builds (it returns
     None when it cannot), numpy otherwise: host staging only."""
-    from wvpk.native import pack_streams_native
+    from ..native import pack_streams_native
 
     nbytes = max((len(p) for p in payloads), default=0)
     nwords = _quantize_words((nbytes + 3) // 4 + EXTRA_PAD_WORDS)

@@ -20,8 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from wvpk import consts
-
+from .. import consts
 from .bitio import wrap32
 from .post import joint_crc
 

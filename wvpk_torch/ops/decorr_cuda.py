@@ -12,9 +12,7 @@ import ctypes
 
 import torch
 
-from wvpk import consts
-
-from .. import _build
+from .. import _build, consts
 
 I32 = torch.int32
 _INT32_MAX = (1 << 31) - 1

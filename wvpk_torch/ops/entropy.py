@@ -24,8 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from wvpk import consts
-
+from .. import consts
 from .bitio import bit_length64, bits_of, exp2s_v, make_windows, \
     mylog2_v, peek, trailing_ones, wrap32
 

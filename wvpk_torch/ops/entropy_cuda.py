@@ -14,9 +14,8 @@ import functools
 import numpy as np
 import torch
 
-from wvpk.tables import EXP2_NP, LOG2_NP
-
 from .. import _build
+from ..tables import EXP2_NP, LOG2_NP
 
 
 def _lib() -> ctypes.CDLL:
