@@ -48,10 +48,35 @@ Phases, each printing one JSON line:
      a realtime factor of DSD64 stereo; one call mixing 16 lossless files
      with the DSD corpus, right in both parts from its one batched copy;
      and a stage split;
-  8. `python -m wvpk_torch.cli` on a lossless file, a hybrid file beside
-     its .wvc and a float file: each .wav must equal the WAV header plus
-     the source samples, byte for byte; and with --raw on a mode-3 DSD
-     file, whose output must equal the source bytes.
+  8. device encode: the encode corpus is the lossless corpus' 192 source
+     arrays one after another, a 768 s 16-bit stereo track (33,868,800
+     frames, 8,269 blocks of 4,096: 8,269 lanes), at the bench's
+     settings (the default preset, warm seeding over 512 samples). Each
+     encode kernel against its plain version on the card at the main
+     path's launch (the warm and the main invert, the word coder, the
+     hybrid scan at HYBRID_BITRATE), timed, and launched on its first 64
+     lanes, timed and held against the plain outputs of those lanes; the
+     other instantiations (hybrid with HYBRID_BALANCE, without
+     HYBRID_BITRATE and mono, a mono invert, the "high" chain's cross
+     terms) launched on 64 lanes and held against their plain versions
+     run on a CPU copy of the inputs in the worker pool. Then
+     encode_device on the track, lossless and hybrid (bitrate 512): one
+     warm-up and three timed calls, the launch counts read (exactly 2
+     inverts, one of them warm, and 1 word coder a lossless call; 1 warm
+     invert and 1 hybrid scan a hybrid call), the last call split into
+     its trace stages, one more lossless call under torch.profiler for
+     the device's idle share, the output decoded by decode_states on
+     the card (0 CRC errors, 0 mutes; lossless sample-exact with its
+     stored MD5 the source's, hybrid the oracle agreeing on probe
+     blocks). Five small files (64 blocks of the track, mono, float,
+     32-bit routed to wvx, 5.1 at 24 bits) encode on the card and, in the
+     worker pool, on the CPU: the bytes must be identical;
+  9. `python -m wvpk_torch.cli --encode` on the track and the four small
+     files as WAVs, then the CLI's decode of those five .wv files, a
+     lossless file, a hybrid file beside its .wvc and a float file: each
+     .wav must equal its source WAV (or the WAV header plus the source
+     samples) byte for byte; and with --raw on a mode-3 DSD file, whose
+     output must equal the source bytes.
 Then a JSON line of per-kernel results (each with its bound: the bytes
 its function must move over the H100's 3.35 TB/s, each input read once
 and each output written once, counting what the lanes hold and not the
@@ -61,8 +86,8 @@ rows the data visits; the integer coders do no floating-point work, so
 bytes set the bound) and, last, the device JSON line.
 
 Counts of kernel launches are set to 0 just before each decode_states
-phase and read just after it; launches made to compare a kernel with its
-plain version do not count. A plain version's time grows with its steps,
+or encode_device phase and read just after it; launches made to compare
+a kernel with its plain version do not count. A plain version's time grows with its steps,
 not its lanes (one small op per step, whatever the lane count), so it
 runs once, at the full bucket; a 64-lane launch is held against the
 plain outputs of its lanes, and only a slice from another bucket (the
@@ -95,6 +120,14 @@ PCM_SECONDS = 2.0          # length of each phase 4-6 signal
 # values stay narrower than max_width, so no sent bit is truncated
 WVX_FILES = ((4, 0, 27), (6, 30, 28), (8, 0, 29), (5, 30, 27))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+# launches of at most this many lanes that are held against their plain
+# version run it on a CPU copy of the inputs: the plain versions are one
+# small op a step, which the host's CPU dispatches faster than it launches
+# and synchronises CUDA kernels
+CPU_PLAIN_LANES = 128
+# worker processes beside the main one, whose plain versions are bound by
+# the host's dispatch: the card's machine has 8 CPU cores
+POOL_WORKERS = 3
 # DSD: DSD64 (1-bit samples a second per channel), 4096 byte-samples a
 # block (bench.py:644); per group 8 one-second signals, the last 2 random
 # bytes; the groups: (name, mode, history_bits)
@@ -105,20 +138,21 @@ DSD_GROUPS = (("dsd_fast_bins4", 1, 2), ("dsd_fast_bins32", 1, 5),
 DSD_EXTRA = (("dsd_fast_mono", 1, True, 2), ("dsd_high_mono", 3, True, None),
              ("dsd_raw", 0, False, None))
 DSD64_STEREO_BYTEVALS_PER_S = DSD_RATE // 8 * 2   # 705,600
+# device encode at the bench's shape: 4096-sample blocks, the default
+# preset, warm seeding over 512 samples, hybrid at bitrate 512; the small
+# files of the CUDA-vs-CPU check are 10 s, the variant launches 64 lanes
+ENC_BLOCK, ENC_WARMUP, ENC_BITRATE = 4096, 512, 512
+ENC_SMALL_SECONDS, ENC_SLICE_BLOCKS = 10.0, 64
+ENC_SMALL = ("track_slice", "mono", "float", "int32_wvx", "mc51_24bit")
 
 
-def make_corpus(n_distinct=N_DISTINCT, n_files=N_FILES, seconds=SECONDS,
-                seed=SEED):
-    """The bench headline corpus (bench.py::_generate_corpus's signals):
-    `n_distinct` encoded files, repeated to `n_files`. Returns (files,
-    pcms), one entry per distinct file; file k of the corpus is
-    files[k % n_distinct]."""
-    from wvpk_torch.testgen import EncodeSpec, encode_file
-
+def corpus_pcms(n_distinct=N_DISTINCT, seconds=SECONDS, seed=SEED):
+    """The bench headline corpus' signals (bench.py::_generate_corpus):
+    `n_distinct` 16-bit stereo arrays."""
     rng = np.random.default_rng(seed)
     n = int(44100 * seconds)
     t = np.arange(n)
-    files, pcms = [], []
+    pcms = []
     for i in range(n_distinct):
         f0 = 220 * (1 + (i % 7))
         sig = (6000 * np.sin(2 * np.pi * f0 * t / 44100)
@@ -128,9 +162,19 @@ def make_corpus(n_distinct=N_DISTINCT, n_files=N_FILES, seconds=SECONDS,
                         np.round(sig * 0.8 + rng.normal(0, 200, n))],
                        axis=1).astype(np.int64)
         np.clip(pcm, -32768, 32767, out=pcm)
-        files.append(encode_file(pcm, EncodeSpec(**SPEC)))
         pcms.append(pcm)
-    return files, pcms
+    return pcms
+
+
+def make_corpus(n_distinct=N_DISTINCT, n_files=N_FILES, seconds=SECONDS,
+                seed=SEED):
+    """The bench headline corpus: `n_distinct` encoded files, repeated to
+    `n_files`. Returns (files, pcms), one entry per distinct file; file k
+    of the corpus is files[k % n_distinct]."""
+    from wvpk_torch.testgen import EncodeSpec, encode_file
+
+    pcms = corpus_pcms(n_distinct, seconds, seed)
+    return [encode_file(pcm, EncodeSpec(**SPEC)) for pcm in pcms], pcms
 
 
 def _tone_pair(seed, f0, amp, noise, ratio, lim, n):
@@ -303,12 +347,14 @@ def _outputs(res) -> tuple:
 
 
 def check_pair(name, kernel, plain, args, kw, timed, run_plain=True,
-               need=None, out_need=None):
+               need=None, out_need=None, plain_cpu=False):
     """`kernel` against `plain` on the same inputs; raises on any
     difference. Returns (the kernel's outputs, the plain version's or
     None, {max_abs_err, ms, plain_ms, bytes, bound_ms}); ms (5 launches,
     CUDA events) only when `timed`, the plain version timed once on the
-    host clock and left out (None) when not `run_plain`. `bytes` counts
+    host clock and left out (None) when not `run_plain`; with `plain_cpu`
+    the plain version runs on a CPU copy of the inputs (its outputs are
+    returned on the card). `bytes` counts
     each input once and each output once, at its tensor's size unless
     `need` (inputs) or `out_need` (outputs) maps its index to the bytes
     the function must move: what the lanes hold, at the delivered
@@ -324,10 +370,16 @@ def check_pair(name, kernel, plain, args, kw, timed, run_plain=True,
            "bytes": nbytes, "bound_ms": 1000 * nbytes / HBM_BYTES_PER_S}
     want = None
     if run_plain:
+        pargs = [a.cpu() if plain_cpu and isinstance(a, torch.Tensor) else a
+                 for a in args]
         t0 = time.perf_counter()
-        want = plain(*args, **kw)
+        want = plain(*pargs, **kw)
         _sync()
         res["plain_ms"] = 1000 * (time.perf_counter() - t0)
+        if plain_cpu:
+            res["plain_device"] = "cpu"
+            want = tuple(w.to(g.device) for w, g in zip(_outputs(want),
+                                                        _outputs(got)))
         pairs = list(zip(_outputs(want), _outputs(got)))
         for i, (w, g) in enumerate(pairs):
             if not torch.equal(w, g):
@@ -407,6 +459,7 @@ def compare_bucket(bucket, device, timed, run_plain=True):
     from wvpk_torch.engine.staging import bucket_tensors
     from wvpk_torch.ops.post import mask_muted
 
+    plain_cpu = len(bucket.states) <= CPU_PLAIN_LANES
     k = _kernels()
     t = bucket_tensors(bucket, device)
     prof = bucket.profile
@@ -423,7 +476,8 @@ def compare_bucket(bucket, device, timed, run_plain=True):
 
     def pair(key, name, args, kw, held, **need):
         got, want, res = check_pair(name, *k[key], args, kw, timed and held,
-                                    run_plain and held, **need)
+                                    run_plain and held, plain_cpu=plain_cpu,
+                                    **need)
         if held:
             out[key], io[key] = res, (got, want)
         return got
@@ -911,7 +965,8 @@ def compare_dsd(name, states, device):
     # visit (the codes are then held against the plain version)
     need, out_need = _dsd_need(g, args, kernel(*args, **kw)[0])
     got, want, res = check_pair(name, kernel, plain, args, kw, True,
-                                need=need, out_need=out_need)
+                                need=need, out_need=out_need,
+                                plain_cpu=len(g.sts) <= CPU_PLAIN_LANES)
     hdr = torch.tensor([st.header.crc for st in g.sts], dtype=torch.int32)
     if not torch.equal(got[-1].cpu(), hdr):
         raise AssertionError(f"{name}: kernel CRCs differ from the headers")
@@ -1044,6 +1099,461 @@ def phase_dsd(dev, jobs, lossless):
     return rows, launches, (wv, src)
 
 
+def track_head(frames=None):
+    """The encode corpus: the lossless corpus' 192 source arrays (file k
+    is signal k % 16) one after another, a 768 s 16-bit stereo track; with
+    `frames`, only its first `frames` frames."""
+    pcms = corpus_pcms()
+    n = len(pcms[0])
+    count = N_FILES if frames is None else -(-frames // n)
+    return np.concatenate([pcms[k % N_DISTINCT] for k in range(count)])[
+        :frames]
+
+
+def small_file(name):
+    """A small file of the encode phase, whose CUDA and CPU encodes must be
+    byte-identical: (pcm, encode_device options, WAV (bits, bytes per
+    sample, format tag))."""
+    n = int(44100 * ENC_SMALL_SECONDS)
+    if name == "track_slice":
+        return track_head(ENC_SLICE_BLOCKS * ENC_BLOCK), {}, (16, 2, 1)
+    if name == "mono":
+        return _tone_pair(1500, 330, 9000, 600, 1.0, 32768, n)[:, :1], {}, \
+            (16, 2, 1)
+    if name == "float":
+        pcm = _tone_pair(1501, 410, 12000, 900, 0.7, 32768, n) / 32768.0
+        return pcm.astype(np.float32), {}, (32, 4, 3)
+    if name == "int32_wvx":
+        pcm = _tone_pair(1502, 520, 9000, 600, 0.8, 32768, n) << 14 | 1
+        return pcm, {"bytes_per_sample": 4}, (32, 4, 1)
+    # 5.1 at 24 bits: three stereo pairs of tones
+    pcm = np.concatenate([_tone_pair(1503 + k, 200 + 130 * k, 2 ** 21,
+                                     2 ** 15, 0.6 + 0.1 * k, 1 << 23, n)
+                          for k in range(3)], axis=1)
+    return pcm, {"bytes_per_sample": 3}, (24, 3, 1)
+
+
+def cpu_encode(name):
+    """A small file's encode_device on the CPU (the plain versions). Runs
+    in a worker process."""
+    from wvpk_torch.encode import encode_device
+
+    torch.set_num_threads(1)
+    pcm, kw, _fmt = small_file(name)
+    return encode_device(pcm, device="cpu", block_samples=ENC_BLOCK,
+                         warmup=ENC_WARMUP, **kw)
+
+
+def plain_encode_kernel(kind, arrays, kw):
+    """A plain encode kernel on the CPU copy of a launch's inputs (numpy
+    arrays); returns its outputs as numpy arrays. Runs in a worker
+    process."""
+    from wvpk_torch.ops.encode_cuda import hybrid_encode_plain
+    from wvpk_torch.ops.encode_kernels import decorr_invert_warm
+
+    torch.set_num_threads(1)
+    fn = {"invert": decorr_invert_warm, "hybrid": hybrid_encode_plain}[kind]
+    out = _flat(fn)(*(torch.from_numpy(a) for a in arrays), **kw)
+    return [o.numpy() for o in out]
+
+
+def _flat(fn):
+    """`fn` with its outputs as one flat tuple (the invert's final state
+    comes as a nested tuple)."""
+    def run(*args, **kw):
+        out = fn(*args, **kw)
+        if not isinstance(out, tuple):
+            return (out,)
+        if len(out) == 2 and isinstance(out[1], tuple):
+            return (out[0],) + out[1]
+        return out
+    return run
+
+
+def _enc_kernels():
+    from wvpk_torch.ops import encode_cuda, encode_kernels
+
+    return {"invert": (encode_cuda.decorr_invert_cuda,
+                       encode_kernels.decorr_invert_warm),
+            "words": (encode_cuda.encode_words_cuda,
+                      encode_cuda.encode_words_plain),
+            "hybrid": (encode_cuda.hybrid_encode_cuda,
+                       encode_cuda.hybrid_encode_plain)}
+
+
+def _enc_launches(lanes, kind, warm=False):
+    """A kernel launch of the encoder's main path on `lanes` (a staged
+    batch, device_encoder.stage_lanes): (args, keywords, need, out_need),
+    the last two the bytes the function must move (check_pair): what the
+    lanes hold (each lane's samples, the chain slots it runs), int32
+    samples and residuals at 4 bytes, the payload at its bytes."""
+    t = lanes.t
+    L = len(lanes.starts)
+    C = 1 if lanes.mono else 2
+    nt = int(t["num_terms"].to(torch.int64).sum())
+    chain = {1: 4 * nt, 2: 4 * nt, 3: 4 * L, 4: 4 * nt,
+             5: 0 if lanes.mono else 4 * nt, 6: 32 * nt,
+             7: 0 if lanes.mono else 32 * nt}
+    values = int(lanes.nsamp.sum()) * C
+    if kind == "invert":
+        if warm:
+            K = min(ENC_WARMUP, t["targets"].shape[0])
+            z16 = torch.zeros_like(t["w0a"])
+            z168 = torch.zeros_like(t["h0a"])
+            args = (t["targets"][:K], t["terms"], t["deltas"],
+                    t["num_terms"], z16, z16, z168, z168)
+            wvals = int(np.minimum(lanes.nsamp, K).sum()) * C
+            state = {1: 4 * nt, 2: chain[5], 3: 32 * nt, 4: chain[7]}
+            return args, dict(mono=lanes.mono, with_state=True), \
+                {0: 4 * wvals, **chain}, {0: 4 * wvals, **state}
+        args = (t["targets"], t["terms"], t["deltas"], t["num_terms"],
+                t["w0a"], t["w0b"], t["h0a"], t["h0b"])
+        return args, dict(mono=lanes.mono), {0: 4 * values, **chain}, \
+            {0: 4 * values}
+    if kind == "words":
+        res = t["residuals"]
+        T = res.shape[0]
+        args = (res.permute(0, 2, 1).reshape(T * C, L).contiguous(),
+                t["med0"], t["nvals"])
+        return args, dict(mono=lanes.mono), \
+            {0: 4 * values, 1: 24 * C * L, 2: 4 * L}, {}
+    args = (t["targets"], t["terms"], t["deltas"], t["num_terms"],
+            t["med0"], t["slow0"], t["acc0"], t["delta0"], t["nvals"],
+            t["w0a"], t["w0b"], t["h0a"], t["h0b"])
+    need = {0: 4 * values, 1: chain[1], 2: chain[2], 3: chain[3],
+            4: 24 * C * L, 5: 8 * C * L, 6: 8 * C * L, 7: 8 * C * L,
+            8: 4 * L, 9: chain[4], 10: chain[5], 11: chain[6],
+            12: chain[7]}
+    return args, lanes.kw, need, {2: 4 * values}
+
+
+def _payload_need(out_need, got):
+    """out_need with the payload (output 0) at its bytes and the bit
+    totals (output 1) at 8 bytes a lane."""
+    total = got[1].to(torch.int64)
+    return {**out_need, 0: int(((total + 7) // 8).sum()),
+            1: 8 * total.numel()}
+
+
+def _lane_prefix(args, n):
+    """The first `n` lanes of an encode launch's arguments: the lane axis
+    is 1 for the first ((T, L, C) samples or (W, L) words), else 0."""
+    return tuple((a[:, :n] if k == 0 else a[:n]).contiguous()
+                 for k, a in enumerate(args))
+
+
+def compare_encode(name, kind, lanes, dev, warm=False):
+    """An encode kernel at the main path's launch (all the track's lanes)
+    against its plain version on the card, timed, then launched on its
+    first 64 lanes, timed and held against the plain outputs of those
+    lanes. Returns (the kernel's outputs, {max_abs_err, ms, plain_ms,
+    bytes, bound_ms, ...})."""
+    kernel, plain = _enc_kernels()[kind]
+    args, kw, need, out_need = _enc_launches(lanes, kind, warm)
+    if kind != "invert":
+        out_need = _payload_need(out_need, kernel(*args, **kw))
+    got, want, res = check_pair(name, _flat(kernel), _flat(plain), args, kw,
+                                True, need=need, out_need=out_need)
+    args64 = _lane_prefix(args, 64)
+    got64 = _flat(kernel)(*args64, **kw)
+    _sync()
+    res.update(lanes=len(lanes.starts), steps=int(args[0].shape[0]),
+               slice_lanes=64, slice_max_abs_err=check_prefix(
+                   name, want, got64),
+               slice_ms=_events_ms(lambda: kernel(*args64, **kw), 5))
+    print(json.dumps({"phase": f"encode_{name}_kernel_vs_plain", **res}))
+    return got, res
+
+
+def stage_variant(pcm, dev, **options):
+    """stage_lanes of `pcm` for a variant launch (64 lanes), with the
+    spec's HYBRID_BITRATE / HYBRID_BALANCE overridden where given."""
+    from dataclasses import replace
+
+    from wvpk_torch.encode import build_spec
+    from wvpk_torch.engine.device_encoder import stage_lanes
+
+    flags = {k: options.pop(k) for k in ("hybrid_bitrate", "hybrid_balance")
+             if k in options}
+    spec = replace(build_spec(pcm, block_samples=ENC_BLOCK, **options),
+                   **flags)
+    return stage_lanes(pcm, spec, ENC_WARMUP, dev)
+
+
+def submit_variants(pool, dev):
+    """The encode kernels' other instantiations on 64 lanes: each launched
+    on the card (timed) and its plain version queued on the worker pool
+    on a CPU copy of the same inputs. Returns [(name, kernel outputs,
+    ms, future)]."""
+    head = track_head(ENC_SLICE_BLOCKS * ENC_BLOCK)
+    mono = small_file("mono")[0][:ENC_SLICE_BLOCKS * ENC_BLOCK]
+    kernels = _enc_kernels()
+    jobs = []
+    for name, kind, pcm, options in (
+            ("hybrid_balance", "hybrid", head,
+             dict(hybrid=True, bitrate=ENC_BITRATE, hybrid_balance=True)),
+            ("hybrid_no_bitrate", "hybrid", head,
+             dict(hybrid=True, bitrate=ENC_BITRATE, hybrid_bitrate=False)),
+            ("hybrid_mono", "hybrid", mono,
+             dict(hybrid=True, bitrate=ENC_BITRATE)),
+            ("invert_mono", "invert", mono, {}),
+            ("invert_high", "invert", head, dict(preset="high"))):
+        lanes = stage_variant(pcm, dev, **options)
+        args, kw, _need, _out = _enc_launches(lanes, kind)
+        got = _flat(kernels[kind][0])(*args, **kw)
+        _sync()
+        ms = _events_ms(lambda: kernels[kind][0](*args, **kw), 5)
+        arrays = [a.cpu().numpy() for a in args]
+        jobs.append((name, got, ms, dict(lanes=len(lanes.starts),
+                                         profile=kw),
+                     pool.submit(plain_encode_kernel, kind, arrays, kw)))
+    return jobs
+
+
+def check_variants(jobs):
+    """Each variant launch against its plain version's outputs."""
+    out = {}
+    for name, got, ms, info, fut in jobs:
+        t0 = time.perf_counter()
+        want = [torch.from_numpy(w) for w in fut.result()]
+        for k, (w, g) in enumerate(zip(want, got)):
+            if not torch.equal(w, g.cpu()):
+                raise AssertionError(f"encode {name}: kernel != plain "
+                                     f"version, output {k}")
+        out[name] = {**info, "ms": ms, "max_abs_err": max(
+            _max_abs_err(w, g.cpu()) for w, g in zip(want, got)),
+            "waited_s": time.perf_counter() - t0}
+    print(json.dumps({"phase": "encode_variants_64_lanes_vs_plain_on_cpu",
+                      "results": out}))
+
+
+def _enc_counts(reset=False):
+    """The encode wrappers' launch counts, the invert kernel's split into
+    its main and its warm (with_state) launches; with `reset` all set to
+    0 first."""
+    from wvpk_torch.ops import encode_cuda as ec
+
+    inv = ec.decorr_invert_cuda
+    if reset:
+        inv.launches = inv.warm_launches = 0
+        ec.encode_words_cuda.launches = ec.hybrid_encode_cuda.launches = 0
+    return {"encode_invert": inv.launches - inv.warm_launches,
+            "encode_invert[warm]": inv.warm_launches,
+            "encode_words": ec.encode_words_cuda.launches,
+            "encode_hybrid": ec.hybrid_encode_cuda.launches}
+
+
+def encode_e2e(name, track, dev, per_call, **options):
+    """encode_device on the whole track: every launch count set to 0, one
+    warm-up and three timed calls, the counts read (each kernel must have
+    launched exactly `per_call` times a call), the last call split into
+    its trace stages (enc_scan is the host's launch time; the kernels'
+    device time lands in enc_fetch, the first synchronising copy).
+    Returns (the .wv bytes, the phase line's fields)."""
+    from wvpk_torch import trace
+    from wvpk_torch.encode import encode_device
+
+    _enc_counts(reset=True)
+    rates = []
+    wv = None
+    for rep in range(4):
+        wv = None
+        with trace.collect() as stages:
+            t0 = time.perf_counter()
+            wv = encode_device(track, device=dev, block_samples=ENC_BLOCK,
+                               warmup=ENC_WARMUP, **options)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if rep > 0:
+            rates.append(len(track) / dt / 1e6)
+    launches = _enc_counts()
+    want = {k: 4 * per_call.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"encode {name}: launches {launches} over 4 "
+                             f"calls, expected {want}")
+    return wv, {"msamples_per_s": rates, "warmup": 1, "frames": len(track),
+                "bytes": len(wv), "ratio": len(wv) / track.nbytes * 4,
+                "launches": launches,
+                "launches_per_call": {k: v / 4 for k, v in launches.items()},
+                "last_call_stage_seconds": dict(stages),
+                "last_call_s": dt}
+
+
+def profile_encode(track, dev):
+    """One more lossless encode_device call under torch.profiler: the
+    device's busy time (the union of the intervals of its kernels and
+    copies in the trace) over the call's wall time gives the device's
+    idle share; the busiest device activities beside it. A trace without
+    device events leaves the share "not measured" (null)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wvpk_torch.encode import encode_device
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        encode_device(track, device=dev, block_samples=ENC_BLOCK,
+                      warmup=ENC_WARMUP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:             # the union of the intervals
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    top = sorted(((a.key, a.count, a.self_device_time_total / 1e3)
+                  for a in prof.key_averages()
+                  if a.self_device_time_total > 0),
+                 key=lambda r: -r[2])[:8]
+    return {"wall_s": wall, "device_events": len(spans),
+            "device_busy_s": busy_us / 1e6 if spans else None,
+            "device_idle_share": 1 - busy_us / 1e6 / wall if spans else None,
+            "top_device_ms": [{"name": k[:80], "count": n, "ms": ms}
+                              for k, n, ms in top]}
+
+
+def check_encoded(wv, dev, pcm=None):
+    """The port's decode_states of an encoded stream on the card: 0 CRC
+    errors, 0 mutes; with `pcm` sample-exact and the stored MD5 equal to
+    the source's, else the scalar oracle agreeing on probe blocks."""
+    import hashlib
+
+    from wvpk_torch.container import parse_blocks
+    from wvpk_torch.engine import decode_states
+    from wvpk_torch.io.pcm import format_samples
+
+    blocks = parse_blocks(wv)
+    states = [b.state for b in blocks]
+    t0 = time.perf_counter()
+    results = decode_states(states, dev)
+    torch.cuda.synchronize()
+    info = {"blocks": len(states), "decode_s": time.perf_counter() - t0,
+            **_flags(results)}
+    if pcm is None:
+        info["oracle_blocks"] = _probe(results, states, [len(states)])
+        return info
+    got = np.concatenate([r.samples for r in results])
+    if not np.array_equal(got, pcm):
+        raise AssertionError("the encoded track does not decode "
+                             "sample-exact")
+    stored = [b.updates.md5 for b in blocks if b.updates.md5 is not None]
+    if stored != [hashlib.md5(format_samples(pcm, 2)).digest()]:
+        raise AssertionError("the stored MD5 differs from the source's")
+    info.update(sample_exact=True, md5_matches=True)
+    return info
+
+
+def phase_encode(dev, pool, cpu_jobs):
+    """Phase 8: the device encoder on the card. Returns ({kernel row:
+    results}, {kernel row: launches in the main path's runs}): the main
+    invert and the words kernel in the lossless run, the hybrid kernel in
+    the hybrid run, the warm invert in both."""
+    from wvpk_torch.encode import build_spec
+    from wvpk_torch.engine.device_encoder import stage_lanes
+
+    t0 = time.perf_counter()
+    track = track_head()
+    print(json.dumps({"phase": "encode_corpus", "frames": len(track),
+                      "blocks": -(-len(track) // ENC_BLOCK),
+                      "seconds": time.perf_counter() - t0}))
+    variants = submit_variants(pool, dev)
+
+    # the kernels at the main path's launches, against their plain versions
+    lanes = stage_lanes(track, build_spec(track, block_samples=ENC_BLOCK),
+                        ENC_WARMUP, dev)
+    _got, warm = compare_encode("invert_warm", "invert", lanes, dev, True)
+    (lanes.t["residuals"],), main = compare_encode("invert", "invert",
+                                                   lanes, dev)
+    _got, words = compare_encode("words", "words", lanes, dev)
+    lanes = stage_lanes(track, build_spec(track, block_samples=ENC_BLOCK,
+                                          hybrid=True, bitrate=ENC_BITRATE),
+                        ENC_WARMUP, dev)
+    _got, hybrid = compare_encode("hybrid", "hybrid", lanes, dev)
+    lanes = None
+    check_variants(variants)
+
+    wv, info = encode_e2e("lossless", track, dev, {
+        "encode_invert": 1, "encode_invert[warm]": 1, "encode_words": 1})
+    info.update(check_encoded(wv, dev, track))
+    print(json.dumps({"phase": "encode_lossless_encode_device", **info}))
+    l_launches = info["launches"]
+    print(json.dumps({"phase": "encode_lossless_profiled_call",
+                      **profile_encode(track, dev)}))
+    wv, info = encode_e2e("hybrid", track, dev, {
+        "encode_invert[warm]": 1, "encode_hybrid": 1}, hybrid=True,
+        bitrate=ENC_BITRATE)
+    info.update(check_encoded(wv, dev))
+    print(json.dumps({"phase": "encode_hybrid_encode_device", **info}))
+    h_launches = info["launches"]
+    wv = None
+
+    from wvpk_torch.encode import encode_device
+
+    small = {}
+    for name, fut in cpu_jobs.items():
+        pcm, kw, fmt = small_file(name)
+        t1 = time.perf_counter()
+        got = encode_device(pcm, device=dev, block_samples=ENC_BLOCK,
+                            warmup=ENC_WARMUP, **kw)
+        cuda_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if fut.result() != got:
+            raise AssertionError(f"{name}: the CUDA and CPU encodes differ")
+        small[name] = {"frames": len(pcm), "channels": pcm.shape[1],
+                       "bytes": len(got), "cuda_s": cuda_s,
+                       "waited_cpu_s": time.perf_counter() - t1,
+                       **check_encoded(got, dev)}
+    print(json.dumps({"phase": "encode_small_files_cuda_equals_cpu",
+                      "files": small}))
+    rows = {"invert_warm": warm, "invert": main, "words": words,
+            "hybrid": hybrid}
+    return rows, {"encode_invert": l_launches["encode_invert"],
+                  "encode_invert[warm]": l_launches["encode_invert[warm]"]
+                  + h_launches["encode_invert[warm]"],
+                  "encode_words": l_launches["encode_words"],
+                  "encode_hybrid": h_launches["encode_hybrid"]}
+
+
+def _small_wav(pcm, fmt):
+    bits, nbytes, tag = fmt
+    if tag == 3:
+        body = pcm.astype("<f4").tobytes()
+    else:
+        from wvpk_torch.io.pcm import format_samples
+        body = format_samples(pcm, nbytes)
+    from wvpk_torch.io.wav import make_wav_header
+
+    return make_wav_header(len(pcm), pcm.shape[1], 44100, bits, nbytes,
+                           fmt_tag=tag) + body
+
+
+def run_cli_encode(wavs, device):
+    """`--encode` of several WAVs in one CLI process. `wavs` maps a name to
+    the WAV bytes. Returns (seconds, {name: .wv bytes})."""
+    work = os.path.join(REPO, "build", "chip_smoke", "encode")
+    os.makedirs(work, exist_ok=True)
+    paths = [os.path.join(work, name + ".wav") for name in wavs]
+    for path, blob in zip(paths, wavs.values()):
+        with open(path, "wb") as f:
+            f.write(blob)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wvpk_torch.cli", "--encode", *paths, "-q",
+         "--device", str(device)], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI exited {proc.returncode}: {proc.stderr}")
+    out = {}
+    for name, path in zip(wavs, paths):
+        with open(path[:-4] + ".wv", "rb") as f:
+            out[name] = f.read()
+    return secs, out
+
+
 def _wav(pcm, bits, nbytes, fmt_tag=1, body=None):
     from wvpk_torch.io.wav import make_wav_header
 
@@ -1081,13 +1591,16 @@ def main() -> int:
                       "nvcc_seconds": _build.build_seconds,
                       "ptxas": ptxas}))
 
-    # the wvx and DSD files encode in worker processes while the card
-    # works
+    # the wvx and DSD files, the CPU encodes of the encode phase's small
+    # files and its plain variant runs go to worker processes while the
+    # card works
     with ProcessPoolExecutor(
-            max_workers=len(WVX_FILES),
+            max_workers=POOL_WORKERS,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         wvx_futures = [pool.submit(make_wvx, i) for i in range(len(WVX_FILES))]
         dsd_jobs = submit_dsd(pool)
+        cpu_encodes = {name: pool.submit(cpu_encode, name)
+                       for name in ENC_SMALL}
         lossless, l_launches, (l_files, l_pcms) = phase_lossless(dev)
         l_file, l_pcm = l_files[0], l_pcms[0]
         hybrid, h_launches = phase_hybrid(dev)
@@ -1096,21 +1609,33 @@ def main() -> int:
             dev, wvx_futures)
         dsd, d_launches, (d_wv, d_src) = phase_dsd(dev, dsd_jobs,
                                                    (l_files, l_pcms))
+        enc, e_launches = phase_encode(dev, pool, cpu_encodes)
 
     from wvpk_torch.io.pcm import format_samples
 
+    # --encode on the track and the small files' WAVs; their .wv files
+    # decode in the next CLI call, with three decode-corpus files
+    wavs = {"encoded_track": _small_wav(track_head(), (16, 2, 1))}
+    for name in ENC_SMALL[1:]:
+        pcm, _kw, fmt = small_file(name)
+        wavs["encoded_" + name] = _small_wav(pcm, fmt)
+    enc_s, encoded = run_cli_encode(wavs, dev)
     cli_s = run_cli({
         "lossless": (l_file, None, _wav(l_pcm, 16, 2)),
         "hybrid_wvc": (c_wv, c_wvc, _wav(c_pcm, 16, 2)),
         "float": (f_file, None, _wav(f_pcm, 32, 4, fmt_tag=3,
                                      body=format_samples(
-                                         f_pcm, 4, float_norm_exp=f_exp)))},
+                                         f_pcm, 4, float_norm_exp=f_exp))),
+        **{name: (encoded[name], None, wav) for name, wav in wavs.items()}},
         dev)
     raw_s = run_cli({"dsd_high": (d_wv, None, d_src.tobytes())}, dev,
                     raw=True)
-    print(json.dumps({"phase": "cli", "files": 3, "byte_exact": True,
-                      "seconds": cli_s, "dsd_raw_byte_exact": True,
-                      "dsd_raw_seconds": raw_s}))
+    print(json.dumps({"phase": "cli", "files": 3 + len(wavs),
+                      "byte_exact": True, "seconds": cli_s,
+                      "dsd_raw_byte_exact": True, "dsd_raw_seconds": raw_s,
+                      "encoded_wavs": len(wavs), "encode_seconds": enc_s,
+                      "encoded_bytes": {k: len(v)
+                                        for k, v in encoded.items()}}))
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
@@ -1136,9 +1661,17 @@ def main() -> int:
          d_launches["dsd_fast"], dsd["dsd_fast_bins32"]),
         ("dsd_high_decode", "dsd_high.cu", "dsd_pallas.py:78",
          d_launches["dsd_high"], dsd["dsd_high"]),
+        ("encode_invert", "encode_invert.cu", "encode_pallas.py:98",
+         e_launches["encode_invert"], enc["invert"]),
+        ("encode_invert[warm]", "encode_invert.cu", "encode_pallas.py:98",
+         e_launches["encode_invert[warm]"], enc["invert_warm"]),
+        ("encode_words", "encode_words.cu", "encode_pallas.py:373",
+         e_launches["encode_words"], enc["words"]),
+        ("encode_hybrid", "encode_hybrid.cu", "encode_pallas.py:566",
+         e_launches["encode_hybrid"], enc["hybrid"]),
     ]
-    # no PyTorch or CUDA library call computes these decoders: library_ms
-    # is null; the bound is the bytes moved (integer work only)
+    # no PyTorch or CUDA library call computes these coders: library_ms is
+    # null; the bound is the bytes moved (integer work only)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"wvpk_torch/csrc/{src}",
          "replaces": f"wvpk/ops/{rep}", "launches": n,

@@ -594,11 +594,14 @@ class Refuse:
 
 
 sys.meta_path.insert(0, Refuse())
-import wvpk_torch.api, wvpk_torch.cli, wvpk_torch.engine, wvpk_torch.testgen
+import wvpk_torch.api, wvpk_torch.cli, wvpk_torch.encode, wvpk_torch.engine
+import wvpk_torch.testgen
 from wvpk_torch.cli import main
 
 for path in sys.argv[1:]:
-    assert main([path, "-q", "--device", "cpu"]) == 0, path
+    encode = ["--encode", "--block-samples", "256"] \
+        if path.endswith(".wav") else []
+    assert main([*encode, path, "-q", "--device", "cpu"]) == 0, path
 """
 
 
@@ -612,23 +615,31 @@ def _seam_static(tmp_path):
 
 def _seam_runtime(tmp_path):
     """A lossless file, a hybrid file beside its .wvc and a DSD file
-    decode through the port's CLI in a process that refuses every import
-    of jax and wvpk."""
+    decode through the port's CLI, and a WAV encodes with the device
+    encoder and decodes back byte for byte, in a process that refuses
+    every import of jax and wvpk."""
+    from wvpk_torch.io.wav import make_wav_header
+
     wv, wvc = _wvc_pair(noise(512, 2, 4000, 12), EncodeSpec(
         block_samples=256, joint=True, hybrid=True, bitrate=300, wvc=True))
+    pcm = noise(600, 2, 3000, 2)
+    wav = make_wav_header(600, 2, 44100, 16, 2) + pcm.astype("<i2").tobytes()
     files = {"lossless.wv": encode_file(noise(600, 2, 3000, 1),
                                         EncodeSpec(block_samples=300)),
              "hybrid.wv": wv, "hybrid.wvc": wvc,
-             "dsd.wv": encode_dsd_file(dsd_bytes(300, 2, 3), 1)}
+             "dsd.wv": encode_dsd_file(dsd_bytes(300, 2, 3), 1),
+             "encoded.wav": wav}
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
+    paths = [str(tmp_path / n) for n in files if n.endswith((".wv", ".wav"))]
     proc = subprocess.run(
-        [sys.executable, "-c", _GUARDED_RUN.format(banned=BANNED),
-         *(str(tmp_path / n) for n in files if n.endswith(".wv"))],
+        [sys.executable, "-c", _GUARDED_RUN.format(banned=BANNED), *paths,
+         str(tmp_path / "encoded.wv")],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     for name in ("lossless", "hybrid", "dsd"):
         assert (tmp_path / f"{name}.wav").stat().st_size > 44
+    assert (tmp_path / "encoded.wav").read_bytes() == wav
 
 
 @pytest.mark.parametrize("check", [_seam_static, _seam_runtime],

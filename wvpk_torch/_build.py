@@ -26,7 +26,8 @@ BUILD_DIR = os.path.join(
     "build", "wvpk_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("entropy", "decorr", "wvc", "wvx", "dsd_fast", "dsd_high")
+SOURCES = ("entropy", "decorr", "wvc", "wvx", "dsd_fast", "dsd_high",
+           "encode_invert", "encode_words", "encode_hybrid")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # seconds nvcc took and what ptxas reported (registers, spills), per

@@ -1,8 +1,11 @@
-"""CLI: .wv -> .wav decoder on the GPU (port of wvpk/cli.py, decode side).
+"""CLI: .wv -> .wav decoder and .wav -> .wv encoder on the GPU (port of
+wvpk/cli.py).
 
     python -m wvpk_torch.cli in.wv -o out.wav [--device cuda|cpu]
         [--wvc [PATH] | --no-wvc]
     python -m wvpk_torch.cli a.wv b.wv ... --batch
+    python -m wvpk_torch.cli --encode in.wav -o out.wv [--device cuda|cpu]
+        [--preset fast|default|high] [--hybrid-bitrate N] [--streaming] ...
 
 Single-file mode mirrors the reference demo's output and end checks
 (WvDemo.cs:15-168: sample-count equality and crc_errors == 0, exit code 1
@@ -14,12 +17,17 @@ streams write their byte-values: after a stored DSF header the payload is
 re-blocked as DSF, so a .wv wrapping a .dsf decodes back to that file byte
 for byte; `--raw` writes the bytes alone. Batch mode
 decodes many files' .wv streams in one device batch and reports
-throughput. Encoding and the JSON report stay in `python -m wvpk.cli`.
+throughput. Encode mode runs the device encoder on `--device`, as wvpk's
+`--encode --device` does; .dsf inputs and `--wvc` (a hybrid file with its
+correction file) take the host encoder, as wvpk's CLI does without
+`--device`. The JSON report stays in `python -m wvpk.cli`.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import struct
 import sys
 import time
 
@@ -257,15 +265,122 @@ def decode_batch(paths: list[str], quiet: bool = False,
     return rc
 
 
+def encode_dsf_one(path: str, out_path: str, *, mode: int,
+                   checksum_bytes: int = 0, quiet: bool = False) -> int:
+    """DSF -> .wv DSD encode with the host encoder: stores the DSF
+    prefix/trailer + file_format so decode reproduces the file
+    byte-exactly."""
+    from .encode import encode_dsd
+    from .io.dsf import read_dsf
+
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        blob = f.read()
+    try:
+        data, rate, header, trailer = read_dsf(blob)
+        wv = encode_dsd(data, mode, dsd_rate=rate, header=header,
+                        trailer=trailer, file_format=consts.FORMAT_DSF,
+                        block_checksum=checksum_bytes)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    with open(out_path, "wb") as f:
+        f.write(wv)
+    if not quiet:
+        dt = time.perf_counter() - t0
+        print(f"encoded {data.shape[0]} DSD byte-samples x "
+              f"{data.shape[1]} ch (mode {mode}) in {dt * 1000:.1f} ms: "
+              f"{len(blob)} -> {len(wv)} bytes "
+              f"({len(wv) / max(len(blob), 1):.1%})")
+    return 0
+
+
+def encode_one(path: str, out_path: str, *, preset: str, block: int,
+               hybrid_bitrate: int, checksum_bytes: int = 0,
+               quiet: bool = False, device: str = "cuda",
+               streaming: bool = False, dsd_mode: int = 0,
+               float_lossy: bool = False, wvc: bool = False) -> int:
+    """WAV -> .wv with the device encoder on `device`; with `wvc` (the
+    device encoder writes no correction stream) the host encoder."""
+    from .encode import encode, encode_device, encode_wav_file
+    from .io.wav import read_wav
+
+    with open(path, "rb") as f:
+        if f.read(4) == b"DSD ":
+            return encode_dsf_one(path, out_path, mode=dsd_mode,
+                                  checksum_bytes=checksum_bytes,
+                                  quiet=quiet)
+    on = None if wvc else device
+    t0 = time.perf_counter()
+    try:
+        if streaming:
+            # bounded-memory two-pass: the WAV payload never fully loads
+            info = encode_wav_file(
+                path, out_path, device=on, block_samples=block,
+                preset=preset, hybrid=hybrid_bitrate > 0,
+                bitrate=hybrid_bitrate or 512,
+                float_lossy=float_lossy, wvc=wvc,
+                block_checksum=checksum_bytes)
+            dt = time.perf_counter() - t0
+            if not quiet:
+                print(f"encoded {info['samples']} samples x "
+                      f"{info['channels']} ch in {dt * 1000:.1f} ms "
+                      f"({info['windows']} windows) on {on or 'host'}: "
+                      f"{os.path.getsize(path)} -> "
+                      f"{info['bytes_written']} bytes")
+            return 0
+        with open(path, "rb") as f:
+            blob = f.read()
+        pcm, rate, bits, header, trailer = read_wav(blob)
+        if float_lossy and pcm.dtype == np.float32 and not quiet:
+            from .encode import float_grid_info
+            gi = float_grid_info(pcm)
+            if not gi["lossless"]:
+                print(f"float content is off-grid: quantizing to grid "
+                      f"2**{gi['norm_exp'] - 150} (max error "
+                      f"{gi['max_error']:.3g})")
+        kw = dict(sample_rate=rate, bytes_per_sample=(bits + 7) // 8,
+                  block_samples=block, preset=preset,
+                  hybrid=hybrid_bitrate > 0, bitrate=hybrid_bitrate or 512,
+                  float_lossy=float_lossy, wvc=wvc,
+                  block_checksum=checksum_bytes, riff_header=header,
+                  riff_trailer=trailer)
+        wv = encode(pcm, **kw) if on is None else \
+            encode_device(pcm, device=on, **kw)
+    except (ValueError, struct.error) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    dt = time.perf_counter() - t0
+    wvc_bytes = None
+    if isinstance(wv, tuple):
+        wv, wvc_bytes = wv
+    with open(out_path, "wb") as f:
+        f.write(wv)
+    if wvc_bytes is not None:
+        with open(out_path + "c", "wb") as f:   # wvunpack's convention
+            f.write(wvc_bytes)
+        if not quiet:
+            print(f"wrote correction file {out_path}c "
+                  f"({len(wvc_bytes)} bytes)")
+    if not quiet:
+        print(f"encoded {pcm.shape[0]} samples x {pcm.shape[1]} ch "
+              f"({bits}-bit) in {dt * 1000:.1f} ms on {on or 'host'}: "
+              f"{len(blob)} -> {len(wv)} bytes "
+              f"({len(wv) / max(len(blob), 1):.1%})")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="wvpk_torch", description="WavPack decoder on the GPU")
-    p.add_argument("inputs", nargs="+", help=".wv input file(s)")
+    p.add_argument("inputs", nargs="+",
+                   help=".wv input file(s) (.wav or .dsf with --encode)")
     p.add_argument("-o", "--output", help="output .wav path (single input)")
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("--device", default="cuda",
-                   help="where to decode: cuda (the CUDA kernels, default) "
-                        "or cpu (their plain PyTorch versions)")
+                   help="where to decode or encode: cuda (the CUDA "
+                        "kernels, default) or cpu (their plain PyTorch "
+                        "versions)")
     p.add_argument("--trace", action="store_true",
                    help="print per-stage timing breakdown")
     p.add_argument("--batch", action="store_true",
@@ -276,24 +391,65 @@ def main(argv=None) -> int:
     p.add_argument("--streaming", action="store_true",
                    help="force bounded-memory streaming decode (lazy "
                         "block parse + segment-cache eviction; automatic "
-                        "for large files)")
+                        "for large files); with --encode, bounded-memory "
+                        "two-pass window-streamed encode")
     p.add_argument("--verify-md5", action="store_true",
                    help="verify decoded audio against the file's stored "
                         "MD5 checksum (fails if the file carries none)")
     p.add_argument("--wvc", nargs="?", const=True, default=None,
                    metavar="PATH",
-                   help="pair this correction file (one input only; "
-                        "without PATH, or by default, the sibling "
-                        "<input>c is picked up)")
+                   help="decode: pair this correction file (one input "
+                        "only; without PATH, or by default, the sibling "
+                        "<input>c is picked up). encode: with "
+                        "--hybrid-bitrate, also write the hybrid-lossless "
+                        "correction file <output>c (host encoder)")
     p.add_argument("--no-wvc", action="store_true",
                    help="ignore any correction file (plain lossy hybrid "
                         "decode)")
+    p.add_argument("--encode", action="store_true",
+                   help="encode mode: inputs are .wav (or .dsf) files, "
+                        "output is .wv (lossless unless --hybrid-bitrate)")
+    p.add_argument("--preset", choices=("fast", "default", "high"),
+                   default="default", help="encode filter preset")
+    p.add_argument("--block-samples", type=int, default=4096,
+                   help="encode block size in samples")
+    p.add_argument("--hybrid-bitrate", type=int, default=0,
+                   help="encode hybrid-lossy with this bitrate value "
+                        "(WordsUtils.cs bitrate_acc>>16 units); 0 = "
+                        "lossless")
+    p.add_argument("--checksum-bytes", type=int, choices=(0, 2, 4),
+                   default=0,
+                   help="stamp ID_BLOCK_CHECKSUM (WavPack 5) of this "
+                        "width on every encoded block")
+    p.add_argument("--dsd-mode", type=int, choices=(0, 1, 3), default=0,
+                   help="DSD encode mode for .dsf inputs: 0 raw, "
+                        "1 fast range coder, 3 high arithmetic coder")
+    p.add_argument("--float-lossy", action="store_true",
+                   help="encode off-grid float32 WAVs by quantizing to "
+                        "the nearest FLOAT_DATA grid (stream is stamped "
+                        "lossy); without it such content is rejected")
     args = p.parse_args(argv)
 
     if args.output and len(args.inputs) > 1 and not args.batch:
         print("Error: -o/--output requires a single input file",
               file=sys.stderr)
         return 2
+    if args.encode:
+        rc = 0
+        for path in args.inputs:
+            out = args.output if args.output \
+                else (path[:-4] if path.endswith((".wav", ".dsf"))
+                      else path) + ".wv"
+            rc |= encode_one(path, out, preset=args.preset,
+                             block=args.block_samples,
+                             hybrid_bitrate=args.hybrid_bitrate,
+                             checksum_bytes=args.checksum_bytes,
+                             quiet=args.quiet, device=args.device,
+                             streaming=args.streaming,
+                             dsd_mode=args.dsd_mode,
+                             float_lossy=args.float_lossy,
+                             wvc=bool(args.wvc))
+        return rc
     wvc_path = args.wvc if isinstance(args.wvc, str) else None
     if wvc_path is not None and (len(args.inputs) > 1 or args.batch):
         print("Error: --wvc PATH pairs one correction file with a single "

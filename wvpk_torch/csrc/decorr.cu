@@ -40,38 +40,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "decorr_pass.cuh"
+
 namespace {
 
-constexpr int MAX_NTERMS = 16;
-constexpr int MAX_TERM = 8;
+using namespace wvpk;
+
 constexpr int THREADS = 32;
-
-__device__ __forceinline__ int add32(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-
-__device__ __forceinline__ int pred(int w, int sam) {
-  return (int)(((long long)w * sam + 512) >> 10);
-}
-
-__device__ __forceinline__ int upd(int w, int delta, int sam, int v) {
-  if (sam != 0 && v != 0) w += (sam ^ v) < 0 ? -delta : delta;
-  return w;
-}
-
-__device__ __forceinline__ int upd_clamp(int w, int delta, int sam, int v) {
-  if (sam != 0 && v != 0)
-    w = (sam ^ v) < 0 ? max(w - delta, -1024) : min(w + delta, 1024);
-  return w;
-}
-
-__device__ __forceinline__ int sam17(const int* r) {
-  return (int)(2u * (unsigned)r[0] - (unsigned)r[1]);
-}
-
-__device__ __forceinline__ int sam18(const int* r) {
-  return ((int)(3u * (unsigned)r[0] - (unsigned)r[1])) >> 1;
-}
 
 __device__ __forceinline__ int cabs32(int v) {
   return v < 0 ? (int)(0u - (unsigned)v) : v;
@@ -148,77 +123,11 @@ decorr_kernel(const int* __restrict__ res, const int* __restrict__ corr,
     int va = in[0];
     int vb = MONO ? 0 : in[1];
     for (int k = 0; k < nt; ++k) {
-      const int tv = term[k], d = delta[k];
-      int* A = ra[k];
-      if (MONO) {
-        int sa;
-        if (tv >= 1 && tv <= MAX_TERM) sa = A[m];
-        else if (tv == 17) sa = sam17(A);
-        else if (tv == 18) sa = sam18(A);
-        else sa = A[0];
-        int oa = add32(pred(wa[k], sa), va);
-        wa[k] = upd(wa[k], d, sa, va);
-        if (tv >= 1 && tv <= MAX_TERM) {
-          A[(m + tv) & 7] = oa;
-        } else if (tv == 17 || tv == 18) {
-          A[1] = A[0];
-          A[0] = oa;
-        }
-        va = oa;
-        continue;
-      }
-      int* B = rb[k];
-      int oa, ob;
-      if (tv >= 1 && tv <= MAX_TERM) {
-        int sa = A[m], sb = B[m];
-        oa = add32(pred(wa[k], sa), va);
-        ob = add32(pred(wb[k], sb), vb);
-        wa[k] = upd(wa[k], d, sa, va);
-        wb[k] = upd(wb[k], d, sb, vb);
-        A[(m + tv) & 7] = oa;
-        B[(m + tv) & 7] = ob;
-      } else if (tv == 17 || tv == 18) {
-        int sa = tv == 17 ? sam17(A) : sam18(A);
-        int sb = tv == 17 ? sam17(B) : sam18(B);
-        oa = add32(pred(wa[k], sa), va);
-        ob = add32(pred(wb[k], sb), vb);
-        wa[k] = upd(wa[k], d, sa, va);
-        wb[k] = upd(wb[k], d, sb, vb);
-        A[1] = A[0];
-        A[0] = oa;
-        B[1] = B[0];
-        B[0] = ob;
-      } else if (tv == -1) {            // A first, its output feeds B
-        int sa = A[0];
-        oa = add32(pred(wa[k], sa), va);
-        ob = add32(pred(wb[k], oa), vb);
-        wa[k] = upd_clamp(wa[k], d, sa, va);
-        wb[k] = upd_clamp(wb[k], d, oa, vb);
-        A[0] = ob;
-      } else if (tv == -2) {            // B first, its output feeds A
-        int sb = B[0];
-        ob = add32(pred(wb[k], sb), vb);
-        oa = add32(pred(wa[k], ob), va);
-        wa[k] = upd_clamp(wa[k], d, ob, va);
-        wb[k] = upd_clamp(wb[k], d, sb, vb);
-        B[0] = oa;
-      } else if (tv == -3) {
-        int sa = A[0], sb = B[0];
-        oa = add32(pred(wa[k], sa), va);
-        ob = add32(pred(wb[k], sb), vb);
-        wa[k] = upd_clamp(wa[k], d, sa, va);
-        wb[k] = upd_clamp(wb[k], d, sb, vb);
-        A[0] = ob;
-        B[0] = oa;
-      } else {  // no valid term class: predicts from slot 0, ring unchanged
-        int sa = A[0], sb = B[0];
-        oa = add32(pred(wa[k], sa), va);
-        ob = add32(pred(wb[k], sb), vb);
-        wa[k] = upd(wa[k], d, sa, va);
-        wb[k] = upd(wb[k], d, sb, vb);
-      }
-      va = oa;
-      vb = ob;
+      if (MONO)
+        va = apply_mono(term[k], delta[k], wa[k], ra[k], m, va);
+      else
+        apply_stereo(term[k], delta[k], wa[k], wb[k], ra[k], rb[k], m, va,
+                     vb);
     }
 
     // folded joint-stereo undo, mute check and CRC

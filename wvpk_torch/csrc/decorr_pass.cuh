@@ -1,0 +1,156 @@
+// One decorrelation pass on one sample, shared by the decode kernel
+// (decorr.cu) and the encode kernels (encode_invert.cu, encode_hybrid.cu),
+// so that the state an encoder carries evolves bit for bit as the
+// decoder's will.
+//
+// The apply is the decode direction (UnpackUtils.cs:688-1240): the
+// predictor is (w * sam + 512) >> 10 in 64 bits truncated to int32, the
+// output adds it to the value with int32 wrap; weights move by +/-delta on
+// sign agreement, clamped to +/-1024 for the cross-channel terms -1, -2,
+// -3; each pass keeps an 8-deep history ring per channel (positive terms
+// index it by sample slot m, 17/18 shift it, cross terms keep the other
+// channel's output in slot 0). The peel is the encode direction: it
+// subtracts the same prediction from the pass's output, reading the state
+// without changing it; its cross terms -1/-2 read the partner's value
+// before this pass's peel (the apply's output of that pass).
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace wvpk {
+
+constexpr int MAX_NTERMS = 16;
+constexpr int MAX_TERM = 8;
+
+__device__ __forceinline__ int add32(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+
+__device__ __forceinline__ int sub32(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+
+__device__ __forceinline__ int pred(int w, int sam) {
+  return (int)(((long long)w * sam + 512) >> 10);
+}
+
+__device__ __forceinline__ int upd(int w, int delta, int sam, int v) {
+  if (sam != 0 && v != 0) w += (sam ^ v) < 0 ? -delta : delta;
+  return w;
+}
+
+__device__ __forceinline__ int upd_clamp(int w, int delta, int sam, int v) {
+  if (sam != 0 && v != 0)
+    w = (sam ^ v) < 0 ? max(w - delta, -1024) : min(w + delta, 1024);
+  return w;
+}
+
+__device__ __forceinline__ int sam17(const int* r) {
+  return (int)(2u * (unsigned)r[0] - (unsigned)r[1]);
+}
+
+__device__ __forceinline__ int sam18(const int* r) {
+  return ((int)(3u * (unsigned)r[0] - (unsigned)r[1])) >> 1;
+}
+
+// The predictor input a pass of term tv reads from its own ring at sample
+// slot m (cross-channel and invalid terms: slot 0).
+__device__ __forceinline__ int ring_sam(int tv, const int* R, int m) {
+  if (tv >= 1 && tv <= MAX_TERM) return R[m];
+  if (tv == 17) return sam17(R);
+  if (tv == 18) return sam18(R);
+  return R[0];
+}
+
+// Mono apply of pass (tv, d) with weight w and ring A: returns the output.
+__device__ __forceinline__ int apply_mono(int tv, int d, int& w, int* A,
+                                          int m, int va) {
+  int sa = ring_sam(tv, A, m);
+  int oa = add32(pred(w, sa), va);
+  w = upd(w, d, sa, va);
+  if (tv >= 1 && tv <= MAX_TERM) {
+    A[(m + tv) & 7] = oa;
+  } else if (tv == 17 || tv == 18) {
+    A[1] = A[0];
+    A[0] = oa;
+  }
+  return oa;
+}
+
+// Stereo apply of pass (tv, d): (va, vb) in, the pass's outputs out.
+__device__ __forceinline__ void apply_stereo(int tv, int d, int& wa, int& wb,
+                                             int* A, int* B, int m, int& va,
+                                             int& vb) {
+  int oa, ob;
+  if (tv >= 1 && tv <= MAX_TERM) {
+    int sa = A[m], sb = B[m];
+    oa = add32(pred(wa, sa), va);
+    ob = add32(pred(wb, sb), vb);
+    wa = upd(wa, d, sa, va);
+    wb = upd(wb, d, sb, vb);
+    A[(m + tv) & 7] = oa;
+    B[(m + tv) & 7] = ob;
+  } else if (tv == 17 || tv == 18) {
+    int sa = tv == 17 ? sam17(A) : sam18(A);
+    int sb = tv == 17 ? sam17(B) : sam18(B);
+    oa = add32(pred(wa, sa), va);
+    ob = add32(pred(wb, sb), vb);
+    wa = upd(wa, d, sa, va);
+    wb = upd(wb, d, sb, vb);
+    A[1] = A[0];
+    A[0] = oa;
+    B[1] = B[0];
+    B[0] = ob;
+  } else if (tv == -1) {            // A first, its output feeds B
+    int sa = A[0];
+    oa = add32(pred(wa, sa), va);
+    ob = add32(pred(wb, oa), vb);
+    wa = upd_clamp(wa, d, sa, va);
+    wb = upd_clamp(wb, d, oa, vb);
+    A[0] = ob;
+  } else if (tv == -2) {            // B first, its output feeds A
+    int sb = B[0];
+    ob = add32(pred(wb, sb), vb);
+    oa = add32(pred(wa, ob), va);
+    wa = upd_clamp(wa, d, ob, va);
+    wb = upd_clamp(wb, d, sb, vb);
+    B[0] = oa;
+  } else if (tv == -3) {
+    int sa = A[0], sb = B[0];
+    oa = add32(pred(wa, sa), va);
+    ob = add32(pred(wb, sb), vb);
+    wa = upd_clamp(wa, d, sa, va);
+    wb = upd_clamp(wb, d, sb, vb);
+    A[0] = ob;
+    B[0] = oa;
+  } else {  // no valid term class: predicts from slot 0, ring unchanged
+    int sa = A[0], sb = B[0];
+    oa = add32(pred(wa, sa), va);
+    ob = add32(pred(wb, sb), vb);
+    wa = upd(wa, d, sa, va);
+    wb = upd(wb, d, sb, vb);
+  }
+  va = oa;
+  vb = ob;
+}
+
+// Mono peel of pass tv: the pass's input given its output va.
+__device__ __forceinline__ int peel_mono(int tv, int w, const int* A, int m,
+                                         int va) {
+  return sub32(va, pred(w, ring_sam(tv, A, m)));
+}
+
+// Stereo peel of pass tv: (va, vb) the pass's outputs in, its inputs out.
+__device__ __forceinline__ void peel_stereo(int tv, int wa, int wb,
+                                            const int* A, const int* B,
+                                            int m, int& va, int& vb) {
+  int sa = tv == -2 ? vb : ring_sam(tv, A, m);
+  int sb = tv == -1 ? va : ring_sam(tv, B, m);
+  int ia = sub32(va, pred(wa, sa));
+  vb = sub32(vb, pred(wb, sb));
+  va = ia;
+}
+
+}  // namespace wvpk

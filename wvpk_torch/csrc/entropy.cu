@@ -41,6 +41,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hybrid.cuh"
 #include "stream.cuh"
 
 namespace {
@@ -49,36 +50,7 @@ using namespace wvpk;
 
 constexpr int LIMIT_ONES = 16;
 constexpr long long DIV0 = 128, DIV1 = 64, DIV2 = 32;
-constexpr int SLS = 8;
-constexpr long long SLO = 1LL << (SLS - 1);
 constexpr int THREADS = 32;
-constexpr int TABLE = 256;  // entries of each of the log2 and exp2 tables
-
-// mylog2 (WordsUtils.cs:588-608); the left shift runs unsigned, so a
-// negative value (a corrupt stream's) is defined as in the plain version.
-__device__ __forceinline__ long long mylog2(long long av, const int* log2t) {
-  av += av >> 9;
-  long long dbits = bit_length(av);
-  long long sh = dbits - 9;
-  long long v = sh >= 0 ? av >> sh : shl(av, -sh);
-  return (dbits << 8) + log2t[v & 0xFF];
-}
-
-// exp2s (WordsUtils.cs:633-646) in int64, with the int32 wrap of its left
-// shift: the shift runs on a uint64_t, where an overflowing shift is
-// defined.
-__device__ __forceinline__ long long exp2s(long long log, const int* exp2t) {
-  long long a = log < 0 ? -log : log;
-  long long v = exp2t[a & 0xFF] | 0x100;
-  long long sh = a >> 8;
-  long long r = sh <= 9 ? v >> (9 - sh)
-                        : wrap32(shl(v, sh - 9 < 63 ? sh - 9 : 63));
-  return log < 0 ? -r : r;
-}
-
-__device__ __forceinline__ long long slow_decay(long long slow) {
-  return slow - ((slow + SLO) >> SLS);
-}
 
 struct Gamma {
   long long value, consume;
@@ -115,44 +87,6 @@ struct Tables {
   const int* log2t;
   const int* exp2t;
 };
-
-// update_error_limit (WordsUtils.cs:195-261), before a channel-A word.
-template <bool MONO, bool BITRATE, bool BALANCE>
-__device__ __forceinline__ void update_error_limit(Lane& s,
-                                                   const Tables& tb) {
-  constexpr int C = MONO ? 1 : 2;
-  long long br[2];
-  for (int c = 0; c < C; ++c) {
-    s.acc[c] = (long long)((uint64_t)s.acc[c] + (uint64_t)s.delta[c]);
-    br[c] = wrap32(s.acc[c] >> 16);
-  }
-  if (!BITRATE) {
-    for (int c = 0; c < C; ++c) s.err[c] = exp2s(br[c], tb.exp2t);
-    return;
-  }
-  long long slow_log[2];
-  for (int c = 0; c < C; ++c) slow_log[c] = (s.slow[c] + SLO) >> SLS;
-  if (BALANCE && !MONO) {
-    long long balance = (slow_log[1] - slow_log[0] + br[1] + 1) >> 1;
-    long long b0, b1;
-    if (balance > br[0]) {
-      b0 = 0;
-      b1 = br[0] * 2;
-    } else if (-balance > br[0]) {
-      b0 = br[0] * 2;
-      b1 = 0;
-    } else {
-      b0 = br[0] - balance;
-      b1 = br[0] + balance;
-    }
-    br[0] = b0;
-    br[1] = b1;
-  }
-  for (int c = 0; c < C; ++c) {
-    long long d = slow_log[c] - br[c];
-    s.err[c] = d > -0x100 ? exp2s(d + 0x100, tb.exp2t) : 0;
-  }
-}
 
 // One get_words iteration for channel C of an active lane; returns the
 // residual (0 for a zero-run word or an EOF break) and, for WVC, the
@@ -222,7 +156,9 @@ __device__ __forceinline__ int decode_word(Lane& s, const Stream& st,
   }
 
   // ---- hybrid error limit (WordsUtils.cs:430-431) ----
-  if (HYBRID && C == 0) update_error_limit<MONO, BITRATE, BALANCE>(s, tb);
+  if (HYBRID && C == 0)
+    update_error_limit<MONO, BITRATE, BALANCE>(s.slow, s.acc, s.delta, s.err,
+                                               tb.exp2t);
 
   // ---- median interval (WordsUtils.cs:433-475) ----
   long long* m = s.med[C];

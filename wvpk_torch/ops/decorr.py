@@ -107,30 +107,31 @@ class _Pass:
         return ring
 
 
-def decorr_decode(residuals, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
-                  num_terms, *, mono: bool):
-    """Apply all decorrelation passes.
+class _Chain:
+    """A bucket's pass chains and their carried state: per pass slot the
+    constants (`_Pass`), the weights and the history rings of each
+    channel, as int64 (L,) and (L, 8) tensors."""
 
-    residuals: (T, L, C) int32; C = 1 (mono) or 2
-    terms/deltas: (L, 16) int32; num_terms (L,) int32
-    w0_a/w0_b: (L, 16) int32; hist0_a/hist0_b: (L, 16, 8) int64
-    Returns (T, L, C) int32 outputs (same contract as wvpk's).
-    """
-    T, L, C = residuals.shape
-    K = int(num_terms.max()) if L else 0
-    passes = [_Pass(terms[:, k], deltas[:, k], num_terms > k, mono)
-              for k in range(K)]
-    wa = [w0_a[:, k].to(I64) for k in range(K)]
-    ring_a = [hist0_a[:, k, :].to(I64) for k in range(K)]
-    if not mono:
-        wb = [w0_b[:, k].to(I64) for k in range(K)]
-        ring_b = [hist0_b[:, k, :].to(I64) for k in range(K)]
-    out = torch.empty_like(residuals)
-    for t in range(T):
-        m = t & 7
-        va = residuals[t, :, 0].to(I64)
-        vb = None if mono else residuals[t, :, 1].to(I64)
-        for k, p in enumerate(passes):
+    def __init__(self, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
+                 num_terms, mono: bool):
+        L = terms.shape[0]
+        K = int(num_terms.max()) if L else 0
+        self.mono = mono
+        self.passes = [_Pass(terms[:, k], deltas[:, k], num_terms > k, mono)
+                       for k in range(K)]
+        self.wa = [w0_a[:, k].to(I64) for k in range(K)]
+        self.ring_a = [hist0_a[:, k, :].to(I64) for k in range(K)]
+        if not mono:
+            self.wb = [w0_b[:, k].to(I64) for k in range(K)]
+            self.ring_b = [hist0_b[:, k, :].to(I64) for k in range(K)]
+
+    def apply(self, m, va, vb):
+        """One sample at ring slot m through the chain in order (decode
+        semantics): advances the state and returns the chain's outputs."""
+        mono = self.mono
+        wa, ring_a = self.wa, self.ring_a
+        wb, ring_b = (None, None) if mono else (self.wb, self.ring_b)
+        for k, p in enumerate(self.passes):
             sam_a = p.sam(ring_a[k], m)
             oa = wrap32(_pred(wa[k], sam_a) + va)
             if mono:
@@ -154,6 +155,26 @@ def decorr_decode(residuals, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
             else:
                 va = torch.where(p.act, oa, va)
                 vb = torch.where(p.act, ob, vb)
+        return va, vb
+
+
+def decorr_decode(residuals, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
+                  num_terms, *, mono: bool):
+    """Apply all decorrelation passes.
+
+    residuals: (T, L, C) int32; C = 1 (mono) or 2
+    terms/deltas: (L, 16) int32; num_terms (L,) int32
+    w0_a/w0_b: (L, 16) int32; hist0_a/hist0_b: (L, 16, 8) int64
+    Returns (T, L, C) int32 outputs (same contract as wvpk's).
+    """
+    T = residuals.shape[0]
+    chain = _Chain(terms, deltas, w0_a, w0_b, hist0_a, hist0_b, num_terms,
+                   mono)
+    out = torch.empty_like(residuals)
+    for t in range(T):
+        va = residuals[t, :, 0].to(I64)
+        vb = None if mono else residuals[t, :, 1].to(I64)
+        va, vb = chain.apply(t & 7, va, vb)
         out[t, :, 0] = va.to(torch.int32)
         if not mono:
             out[t, :, 1] = vb.to(torch.int32)

@@ -86,15 +86,17 @@ def _read_code(win, maxcode):
     return code, consume
 
 
-def _update_error_limit(st: _LaneState, mask, mono: bool,
+def _update_error_limit(slow, acc, delta, errlim, mask, mono: bool,
                         hybrid_bitrate: bool, hybrid_balance: bool):
     """update_error_limit (WordsUtils.cs:195-261) for the lanes in
     `mask`: the bitrate accumulators advance by delta and the error limits
-    follow them (and, with HYBRID_BITRATE, the slow levels)."""
-    acc = st.acc + st.delta
-    bitrate = wrap32(acc >> 16)
+    follow them (and, with HYBRID_BITRATE, the slow levels). slow, acc,
+    delta and errlim are (L, 2) int64; returns the new (acc, errlim)
+    (mono: channel 1 unchanged)."""
+    acc_new = acc + delta
+    bitrate = wrap32(acc_new >> 16)
     chans = 1 if mono else 2
-    slow_log = (st.slow + SLO) >> SLS
+    slow_log = (slow + SLO) >> SLS
     br = [bitrate[:, c] for c in range(chans)]
     if hybrid_bitrate and hybrid_balance and not mono:
         balance = (slow_log[:, 1] - slow_log[:, 0] + br[1] + 1) >> 1
@@ -113,9 +115,9 @@ def _update_error_limit(st: _LaneState, mask, mono: bool,
     m = mask[:, None]
     if mono:
         m = m & (torch.arange(2, device=mask.device) == 0)[None, :]
-        err.append(st.errlim[:, 1])
-    st.acc = torch.where(m, acc, st.acc)
-    st.errlim = torch.where(m, torch.stack(err, dim=1), st.errlim)
+        err.append(errlim[:, 1])
+    return (torch.where(m, acc_new, acc),
+            torch.where(m, torch.stack(err, dim=1), errlim))
 
 
 def _search(win, low, high, err, go):
@@ -197,8 +199,9 @@ def _decode_word(st: _LaneState, c: int, active, windows, *, mono: bool,
     # ---- hybrid error limit (WordsUtils.cs:430-431): before channel-A
     # words, and every word in mono ----
     if hybrid and c == 0:
-        _update_error_limit(st, code_mask, mono, hybrid_bitrate,
-                            hybrid_balance)
+        st.acc, st.errlim = _update_error_limit(
+            st.slow, st.acc, st.delta, st.errlim, code_mask, mono,
+            hybrid_bitrate, hybrid_balance)
 
     # ---- median interval (WordsUtils.cs:433-475) ----
     m0, m1, m2 = med[:, c, 0], med[:, c, 1], med[:, c, 2]
