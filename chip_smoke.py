@@ -6,7 +6,9 @@
 Phases, each printing one JSON line:
   1. the card's name and power limit (nvidia-smi, a plain line);
   2. build every CUDA kernel from wvpk_torch/csrc, one nvcc per source, all
-     started together;
+     started together; ptxas' registers, stack frame and spill bytes of
+     each kernel (every compiled decorrelation chain must have neither
+     stack nor spills to be in registers);
   3. lossless: each kernel against its plain PyTorch version on the card,
      bit-exact, at the full bucket (the main path's shape) and launched on
      a 64-lane slice, both timed; then the bench corpus (192 files of 4 s
@@ -15,8 +17,22 @@ Phases, each printing one JSON line:
      wvpk_torch.engine.decode_states: one
      warm-up and three timed repeats; 0 CRC errors, 0 mutes, sample-exact
      against the source PCM, the scalar oracle (wvpk_torch.ref) agreeing on
-     probe blocks, both kernels launched by that run; one run split into
-     its stages;
+     probe blocks, both kernels launched by that run, each call exactly
+     2 entropy and 2 decorrelation launches, both of the latter through
+     the kernel compiled for the (18, 17, 2) chain and none through the
+     generic one; the generic kernel timed beside it on the same bucket;
+     one run split into its stages. Then the entropy kernel on 64 lanes
+     of edge streams for each profile (wvpk_torch/testgen/edge.py:
+     lossless, hybrid plain / HYBRID_BITRATE / HYBRID_BALANCE, stereo and
+     mono, with and without the wvc outputs), against its plain version
+     on a CPU copy; and the mixed-chain corpus (MIX_FILES files of 4 s on
+     each of the bench chain, the three encoder presets and one chain
+     outside the table, ~430 lanes in one bucket sorted into one run per
+     chain): its decorrelation kernels against their plain versions on a
+     CPU copy (the wvc arm too, on corrections made from a seed),
+     synthetic mixed buckets running every compiled chain, stereo and
+     mono, with and without the wvc arm, then decode_states, sample-exact,
+     each table chain's kernel and the generic one launched;
   4. hybrid lossy, the slice's headline: the 10 hybrid signals of the JAX
      bench (2 s 16-bit stereo, HYBRID_BITRATE, bitrates 256..976, balance
      on every third, two term chains), each repeated 37 times; the hybrid
@@ -144,6 +160,17 @@ DSD64_STEREO_BYTEVALS_PER_S = DSD_RATE // 8 * 2   # 705,600
 ENC_BLOCK, ENC_WARMUP, ENC_BITRATE = 4096, 512, 512
 ENC_SMALL_SECONDS, ENC_SLICE_BLOCKS = 10.0, 64
 ENC_SMALL = ("track_slice", "mono", "float", "int32_wvx", "mc51_24bit")
+# the mixed-chain corpus: MIX_FILES files of 4 s 16-bit stereo on each of
+# the decorrelation kernels' table chains (the bench chain and the encoder
+# presets) and on one chain outside the table; the lanes of one bucket
+MIX_CHAINS = (("bench", (18, 17, 2)), ("fast", (17, 17)),
+              ("default", (18, 18, 2, 17, 3)),
+              ("high", (18, 18, 18, -2, 2, 3, 5, -1, 17, 4)),
+              ("outside", (3, 17, -3, 2)))
+MIX_FILES = 2
+# the entropy kernel's edge streams: lanes per profile
+# (wvpk_torch/testgen/edge.py)
+EDGE_LANES = 64
 
 
 def corpus_pcms(n_distinct=N_DISTINCT, seconds=SECONDS, seed=SEED):
@@ -407,6 +434,14 @@ def check_prefix(name, want, got) -> int:
     return err
 
 
+def _chain_blind(plain):
+    """A plain decorrelation that takes (and, computing the same function,
+    ignores) the kernels' static_terms / chain_segments."""
+    def run(*args, static_terms=None, chain_segments=None, **kw):
+        return plain(*args, **kw)
+    return run
+
+
 def _kernels():
     """The kernel wrappers and their plain versions, by name."""
     from wvpk_torch.ops import decorr, decorr_cuda, dsd, dsd_cuda, \
@@ -418,9 +453,10 @@ def _kernels():
         "entropy_wvc": (entropy_cuda.entropy_decode_wvc_cuda,
                         lambda *a, **k: entropy.entropy_decode(
                             *a, hybrid=True, wvc=True, **k)),
-        "decorr": (decorr_cuda.decorr_post_cuda, decorr.decorr_post),
-        "decorr_wvc": (decorr_cuda.decorr_post_wvc_cuda,
-                       decorr.decorr_post_wvc),
+        "decorr": (decorr_cuda.decorr_post_cuda, _chain_blind(
+            decorr.decorr_post)),
+        "decorr_wvc": (decorr_cuda.decorr_post_wvc_cuda, _chain_blind(
+            decorr.decorr_post_wvc)),
         "wvc": (wvc_cuda.wvc_corrections_cuda, entropy.wvc_corrections),
         "wvx": (wvx_cuda.wvx_inject_cuda, post.wvx_inject),
         "dsd_fast": (dsd_cuda.dsd_fast_decode_cuda,
@@ -445,7 +481,7 @@ def _decorr_args(t, residuals):
             t["joint"], t["mute_limit"])
 
 
-def compare_bucket(bucket, device, timed, run_plain=True):
+def compare_bucket(bucket, device, timed, run_plain=True, plain_cpu=None):
     """Each kernel of the bucket's decode against its plain version on
     the same inputs (the kernels' outputs feed the next step): lossless
     buckets run the entropy and decorrelation kernels, hybrid buckets the
@@ -459,7 +495,8 @@ def compare_bucket(bucket, device, timed, run_plain=True):
     from wvpk_torch.engine.staging import bucket_tensors
     from wvpk_torch.ops.post import mask_muted
 
-    plain_cpu = len(bucket.states) <= CPU_PLAIN_LANES
+    if plain_cpu is None:
+        plain_cpu = len(bucket.states) <= CPU_PLAIN_LANES
     k = _kernels()
     t = bucket_tensors(bucket, device)
     prof = bucket.profile
@@ -472,6 +509,9 @@ def compare_bucket(bucket, device, timed, run_plain=True):
     values = int(bucket.nsamples.sum()) * (1 if prof.mono else 2)
     samples = 4 * values
     delivered = (_bucket_bps(bucket) or 4) * values
+    # the decorrelation kernels run per chain, as the pipeline runs them
+    dkw = dict(mono=prof.mono, static_terms=bucket.static_terms,
+               chain_segments=bucket.chain_segments)
     out, io = {}, {}
 
     def pair(key, name, args, kw, held, **need):
@@ -493,7 +533,7 @@ def compare_bucket(bucket, device, timed, run_plain=True):
                     out_need={0: samples})
         dargs = _decorr_args(t, res)
         pair("decorr_wvc", "decorr_post[wvc]",
-             dargs[:1] + (corr,) + dargs[1:], dict(mono=prof.mono), True,
+             dargs[:1] + (corr,) + dargs[1:], dkw, True,
              need={0: samples, 1: samples}, out_need={0: delivered})
     else:
         hold = not prof.has_wvx
@@ -502,8 +542,8 @@ def compare_bucket(bucket, device, timed, run_plain=True):
                              out_need={0: samples})
         if not prof.hybrid:
             dec, _crc, first_bad = pair(
-                "decorr", "decorr_post", _decorr_args(t, res),
-                dict(mono=prof.mono), hold, need={0: samples},
+                "decorr", "decorr_post", _decorr_args(t, res), dkw, hold,
+                need={0: samples},
                 out_need={0: delivered})
     if broke.any():
         raise AssertionError("corpus lanes hit an EOF break")
@@ -577,6 +617,26 @@ def _counters():
             "dsd_high": dsd_cuda.dsd_high_decode_cuda}
 
 
+def _reset(counters):
+    """Every launch count to 0, the decorrelation kernels' counts of each
+    instantiation too."""
+    for fn in counters.values():
+        fn.launches = 0
+        for k in getattr(fn, "chain_launches", {}):
+            fn.chain_launches[k] = 0
+
+
+def _instances():
+    """The launches of each decorrelation kernel instantiation, keyed
+    "decorr:<chain>" and "decorr_wvc:<chain>" (ops/decorr_cuda.py)."""
+    from wvpk_torch.ops import decorr_cuda
+
+    return {f"{key}:{name}": n
+            for key, fn in (("decorr", decorr_cuda.decorr_post_cuda),
+                            ("decorr_wvc", decorr_cuda.decorr_post_wvc_cuda))
+            for name, n in fn.chain_launches.items() if n}
+
+
 def decode_phase(name, states, frames, device, expect, check,
                  rate_key="msamples_per_s", realtime=None):
     """decode_states on the phase's corpus: every launch count set to 0,
@@ -588,8 +648,7 @@ def decode_phase(name, states, frames, device, expect, check,
     from wvpk_torch.engine import decode_states
 
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset(counters)
     torch.cuda.reset_peak_memory_stats()
     rates = []
     results = None
@@ -608,6 +667,7 @@ def decode_phase(name, states, frames, device, expect, check,
     if min(launches[k] for k in expect) < 1:
         raise AssertionError(f"{name}: main path skipped a kernel: "
                              f"{launches}")
+    launches.update(_instances())
     info = check(results)
     if realtime:
         info["realtime_x"] = [r * 1e6 / realtime for r in rates]
@@ -767,12 +827,224 @@ def phase_lossless(dev):
     frames = _frames(pcms, N_FILES)
     _corpus_line("lossless", files, N_FILES, states, frames, t0)
     full = compare_phase("lossless", states, dev)
+    full["decorr_generic"] = generic_decorr(states, dev, full["decorr"])
     launches = decode_phase("lossless", states, frames, dev,
                             ("entropy", "decorr"),
                             check_exact(states, per_file, pcms))
+    # 4 calls, each 2 buckets: 2 entropy launches and 2 of the (18, 17, 2)
+    # decorrelation kernel a call, never the generic one
+    want = {"entropy": 8, "decorr": 8, "decorr:bench": 8}
+    if {k: launches.get(k, 0) for k in want} != want \
+            or launches.get("decorr:generic", 0):
+        raise AssertionError(f"lossless: launches {launches}, expected "
+                             f"{want} and no generic decorrelation")
     print(json.dumps({"phase": "lossless_stage_seconds",
                       "stages": stage_breakdown(states, dev)}))
     return full, launches, (files, pcms)
+
+
+def generic_decorr(states, device, chain_row):
+    """The lossless bucket's decorrelation through the generic kernel
+    (each lane's chain read at run time) beside the kernel compiled for
+    its chain, on the same residuals: the outputs equal (the chain
+    kernel's were held against the plain version), both timed in turns
+    (chain, generic, generic, chain). Returns the generic row (the plain
+    time and bound are the chain row's: the same function and inputs)."""
+    from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+    from wvpk_torch.ops.decorr_cuda import decorr_post_cuda
+    from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda
+
+    b = max(group_blocks(states), key=lambda x: len(x.states))
+    t = bucket_tensors(b, device)
+    args, kw = _entropy_io(t, b.profile)
+    res = entropy_decode_cuda(*args, hybrid=False, **kw)[0]
+    dargs = _decorr_args(t, res)
+    mono = b.profile.mono
+
+    def chain():
+        return decorr_post_cuda(*dargs, mono=mono,
+                                static_terms=b.static_terms)
+
+    def generic():
+        return decorr_post_cuda(*dargs, mono=mono)
+
+    want, got = chain(), generic()
+    _sync()
+    err = max(_max_abs_err(w, g) for w, g in zip(want, got))
+    if err or not all(torch.equal(w, g) for w, g in zip(want, got)):
+        raise AssertionError("generic decorr kernel != chain kernel")
+    turns = [_events_ms(fn, 5) for fn in (chain, generic, generic, chain)]
+    return {"max_abs_err": err, "ms": (turns[1] + turns[2]) / 2,
+            "ms_turns": turns[1:3], "chain_ms_turns": [turns[0], turns[3]],
+            "plain_ms": chain_row["plain_ms"], "bytes": chain_row["bytes"],
+            "bound_ms": chain_row["bound_ms"],
+            "static_terms": list(b.static_terms)}
+
+
+def phase_entropy_edges(dev, jobs):
+    """The entropy kernel on EDGE_LANES lanes of edge streams per profile
+    (testgen/edge.py), against its plain version on a CPU copy: every
+    output equal, some lanes broken and some not."""
+    from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+
+    k = _kernels()
+    results = {}
+    for profile, fut in jobs.items():
+        (b,) = group_blocks(fut.result())
+        t = bucket_tensors(b, dev)
+        args, kw = _entropy_io(t, b.profile)
+        key = "entropy_wvc" if b.profile.has_wvc else "entropy"
+        if key == "entropy":
+            kw = dict(kw, hybrid=b.profile.hybrid)
+        _got, want, res = check_pair(f"entropy edge streams {profile}",
+                                     *k[key], args, kw, True,
+                                     plain_cpu=True)
+        broke = want[-2]
+        if not broke.any() or broke.all():
+            raise AssertionError(f"edge streams {profile}: broken lanes "
+                                 f"{int(broke.sum())} of {len(broke)}")
+        res.update(lanes=len(b.states), words_per_lane=int(b.words.shape[1]),
+                   broke_lanes=int(broke.sum()))
+        results[profile] = res
+    print(json.dumps({"phase": "entropy_edge_streams_vs_plain_on_cpu",
+                      "results": results}))
+
+
+def make_mixed(k):
+    """File k of the mixed-chain corpus: 4 s of 16-bit stereo (a tone pair
+    and noise) on chain MIX_CHAINS[k // MIX_FILES]. Runs in a worker
+    process. Returns (file, pcm)."""
+    from wvpk_torch.testgen import EncodeSpec, encode_file
+
+    _name, terms = MIX_CHAINS[k // MIX_FILES]
+    pcm = _tone_pair(1700 + k, 180 + 60 * k, 5000 + 500 * k, 300 + 40 * k,
+                     0.7, 32768, int(44100 * SECONDS))
+    return encode_file(pcm, EncodeSpec(block_samples=4096, joint=True,
+                                       terms=terms,
+                                       deltas=(2,) * len(terms))), pcm
+
+
+def synthetic_chains(mono, T=256, lanes=64, seed=77):
+    """The decorrelation inputs of a mixed-chain bucket made from a seed:
+    `lanes` lanes on each table chain (ops/decorr_cuda.py::CHAINS) of the
+    channel count, on a chain outside the table, and on random chains (a
+    generic tail); random residuals, weights, histories, sample counts,
+    joint flags and mute limits, some low enough to fire. Returns (CPU
+    tensors in decorr_post's argument order, chain_segments)."""
+    from wvpk_torch.ops.decorr_cuda import CHAINS
+
+    rng = np.random.default_rng(seed + mono)
+    C = 1 if mono else 2
+    chains = [c for _n, m, c in CHAINS if m == mono] + [(3, 17, 2)]
+    runs = chains + [None]
+    L = lanes * len(runs)
+    terms = np.zeros((L, 16), np.int32)
+    nt = np.zeros(L, np.int32)
+    segs = []
+    pool = [1, 2, 3, 4, 5, 6, 7, 8, 17, 18] + ([] if mono else [-1, -2, -3])
+    for r, chain in enumerate(runs):
+        lo = r * lanes
+        for i in range(lo, lo + lanes):
+            c = chain if chain else tuple(rng.choice(pool, rng.integers(
+                0, 17)))
+            terms[i, :len(c)] = c
+            nt[i] = len(c)
+        segs.append((chain, lo, lo + lanes,
+                     len(chain) if chain else max(int(nt[lo:].max()), 1)))
+    deltas = np.where(np.arange(16)[None, :] < nt[:, None],
+                      rng.integers(0, 8, (L, 16)), 0).astype(np.int32)
+    arrays = [rng.integers(-2**14, 2**14, (T, L, C)).astype(np.int32),
+              terms, deltas,
+              rng.integers(-2**10, 2**10, (L, 16)).astype(np.int32),
+              rng.integers(-2**10, 2**10, (L, 16)).astype(np.int32),
+              rng.integers(-2**15, 2**15, (L, 16, 8)).astype(np.int64),
+              rng.integers(-2**15, 2**15, (L, 16, 8)).astype(np.int64),
+              nt, rng.integers(T // 2, T + 1, L).astype(np.int32),
+              rng.integers(0, 2, L).astype(bool),
+              np.where(rng.random(L) < 0.2, 2**13, 2**40).astype(np.int64)]
+    return [torch.from_numpy(a) for a in arrays], tuple(segs)
+
+
+def check_synthetic_chains(dev):
+    """Every table chain, stereo and mono, with and without the wvc arm,
+    and the generic kernel, on synthetic_chains' buckets through their
+    chain_segments: equal to the plain version on the CPU."""
+    k = _kernels()
+    results = {}
+    for mono in (False, True):
+        args, segs = synthetic_chains(mono)
+        corr = torch.from_numpy(np.random.default_rng(78 + mono).integers(
+            -2**12, 2**12, tuple(args[0].shape)).astype(np.int32))
+        kw = dict(mono=mono, chain_segments=segs)
+        for key, a in (("decorr", args),
+                       ("decorr_wvc", [args[0], corr] + args[1:])):
+            on_card = [x.to(dev) for x in a]
+            _got, _want, res = check_pair(
+                f"{key} synthetic chains", *k[key], on_card, kw, True,
+                plain_cpu=True)
+            name = f"{key}[{'mono' if mono else 'stereo'}]"
+            results[name] = {"lanes": int(a[0].shape[1]),
+                             "steps": int(a[0].shape[0]),
+                             "max_abs_err": res["max_abs_err"],
+                             "ms": res["ms"], "plain_ms": res["plain_ms"]}
+    return results
+
+
+def phase_mixed(dev, futures):
+    """The mixed-chain corpus: its largest bucket's decorrelation kernels
+    against their plain versions on a CPU copy (one run per chain; the wvc
+    arm on the same residuals with corrections made from a seed),
+    synthetic mixed buckets for every table chain, then
+    decode_states as in 3, each table chain's kernel and the generic one
+    launched. Returns ({kernel: results}, launches)."""
+    from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+    from wvpk_torch.ops.decorr_cuda import lane_runs
+
+    t0 = time.perf_counter()
+    got = [f.result() for f in futures]
+    files, pcms = [g[0] for g in got], [g[1] for g in got]
+    states, per_file = parse_corpus(files, len(files))
+    frames = _frames(pcms, len(files))
+    _corpus_line("mixed_chains", files, len(files), states, frames, t0)
+    buckets = group_blocks(states)
+    b = max(buckets, key=lambda x: len(x.states))
+    if b.chain_segments is None:
+        raise AssertionError("the mixed-chain bucket has no segments")
+    # the residuals from the entropy kernel (held on the lossless bucket)
+    t = bucket_tensors(b, dev)
+    args, ekw = _entropy_io(t, b.profile)
+    res = _kernels()["entropy"][0](*args, hybrid=False, **ekw)[0]
+    corr = torch.from_numpy(np.random.default_rng(79).integers(
+        -2**12, 2**12, tuple(res.shape)).astype(np.int32)).to(dev)
+    dargs = _decorr_args(t, res)
+    kw = dict(mono=b.profile.mono, chain_segments=b.chain_segments)
+    values = int(b.nsamples.sum()) * (1 if b.profile.mono else 2)
+    full = {}
+    for key, a, need in (
+            ("decorr", dargs, {0: 4 * values}),
+            ("decorr_wvc", dargs[:1] + (corr,) + dargs[1:],
+             {0: 4 * values, 1: 4 * values})):
+        _got, _want, full[key] = check_pair(
+            f"{key} mixed chains", *_kernels()[key], a, kw, True,
+            need=need, out_need={0: 2 * values}, plain_cpu=True)
+    runs = lane_runs(len(b.states), b.profile.mono,
+                     chain_segments=b.chain_segments)
+    print(json.dumps({"phase": "mixed_chains_kernels_vs_plain_on_cpu",
+                      "buckets": [len(x.states) for x in buckets],
+                      "lanes": len(b.states), "T": b.profile.nsamples_cap,
+                      "chain_segments": [[list(c) if c else None, s, e]
+                                         for c, s, e, _n in b.chain_segments],
+                      "kernel_runs": runs, "results": full,
+                      "synthetic": check_synthetic_chains(dev)}))
+    launches = decode_phase("mixed_chains", states, frames, dev,
+                            ("entropy", "decorr"),
+                            check_exact(states, per_file, pcms, probe=False))
+    need = [f"decorr:{n}" for n in ("bench", "fast", "default", "high",
+                                    "generic")]
+    if min(launches.get(k, 0) for k in need) < 1:
+        raise AssertionError(f"mixed chains: a kernel did not run: "
+                             f"{launches}")
+    return full, launches
 
 
 def phase_hybrid(dev):
@@ -1077,8 +1349,7 @@ def phase_dsd(dev, jobs, lossless):
     l_files, l_pcms = lossless
     l_states, l_per_file = parse_corpus(l_files, 16)
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset(counters)
     t1 = time.perf_counter()
     results = decode_states(l_states + states, dev)
     torch.cuda.synchronize()
@@ -1554,6 +1825,48 @@ def run_cli_encode(wavs, device):
     return secs, out
 
 
+def _kernel_label(mangled: str) -> str:
+    """A readable name for a kernel's mangled name: its function name and
+    its template arguments (bools and ints), e.g.
+    decorr_chain<false,false,18,17,2>."""
+    import re
+
+    m = re.search(r"\d+([a-z_]+(?:kernel|chain|generic)[a-z_]*)I(.*)E",
+                  mangled)
+    if not m:
+        return mangled
+    args = []
+    for kind, neg, v in re.findall(r"L([bi])(n?)(\d+)E", m.group(2)):
+        args.append(("true" if v == "1" else "false") if kind == "b"
+                    else ("-" if neg else "") + v)
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_table(log: str) -> list[dict]:
+    """What `nvcc -Xptxas -v` said of each kernel of a source: its
+    registers, stack frame and spill bytes."""
+    import re
+
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"kernel": _kernel_label(m.group(1))}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
 def _wav(pcm, bits, nbytes, fmt_tag=1, body=None):
     from wvpk_torch.io.wav import make_wav_header
 
@@ -1583,12 +1896,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "stack frame" in ln
-                 or "Compiling entry" in ln]
-             for k, v in _build.ptxas_log.items()}
+    ptxas = {k: ptxas_table(v) for k, v in _build.ptxas_log.items()}
+    chains = [r for r in ptxas.get("decorr", [])
+              if r["kernel"].startswith("decorr_chain")]
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "nvcc_seconds": _build.build_seconds,
+                      "decorr_chain_kernels": len(chains),
+                      "decorr_chains_without_stack_or_spills": all(
+                          r.get("stack") == 0 and r.get("spill_stores") == 0
+                          for r in chains) if chains else None,
                       "ptxas": ptxas}))
 
     # the wvx and DSD files, the CPU encodes of the encode phase's small
@@ -1597,12 +1913,20 @@ def main() -> int:
     with ProcessPoolExecutor(
             max_workers=POOL_WORKERS,
             mp_context=multiprocessing.get_context("spawn")) as pool:
+        from wvpk_torch.testgen.edge import EDGE_PROFILES, edge_states
+
+        edge_jobs = {p: pool.submit(edge_states, p, EDGE_LANES, 11)
+                     for p in EDGE_PROFILES}
+        mixed_futures = [pool.submit(make_mixed, k)
+                         for k in range(MIX_FILES * len(MIX_CHAINS))]
         wvx_futures = [pool.submit(make_wvx, i) for i in range(len(WVX_FILES))]
         dsd_jobs = submit_dsd(pool)
         cpu_encodes = {name: pool.submit(cpu_encode, name)
                        for name in ENC_SMALL}
         lossless, l_launches, (l_files, l_pcms) = phase_lossless(dev)
         l_file, l_pcm = l_files[0], l_pcms[0]
+        phase_entropy_edges(dev, edge_jobs)
+        mixed, m_launches = phase_mixed(dev, mixed_futures)
         hybrid, h_launches = phase_hybrid(dev)
         wvc, c_launches, ((c_wv, c_wvc), c_pcm) = phase_wvc(dev)
         wvx, x_launches, (f_file, f_pcm, f_exp) = phase_float_wvx(
@@ -1651,6 +1975,10 @@ def main() -> int:
          l_launches["decorr"], lossless["decorr"]),
         ("decorr_post[wvc]", "decorr.cu", "decorr_pallas.py:163",
          c_launches["decorr_wvc"], wvc["decorr_wvc"]),
+        ("decorr_post[generic]", "decorr.cu", "decorr_pallas.py:163",
+         l_launches.get("decorr:generic", 0), lossless["decorr_generic"]),
+        ("decorr_post[mixed_chains]", "decorr.cu", "decorr_pallas.py:163",
+         m_launches["decorr"], mixed["decorr"]),
         ("wvx_inject", "wvx.cu", "post.py:145", x_launches["wvx"],
          wvx["wvx"]),
         ("wvc_corrections", "wvc.cu", "entropy.py:352", c_launches["wvc"],

@@ -24,8 +24,10 @@ from wvpk_torch.ops.dsd import dsd_fast_decode_bytes, dsd_high_decode_bytes
 from wvpk_torch.ops.dsd_cuda import dsd_fast_decode_cuda, \
     dsd_high_decode_cuda
 from wvpk_torch.ops.decorr import decorr_post, decorr_post_wvc
-from wvpk_torch.ops.decorr_cuda import decorr_post_cuda, \
+from wvpk_torch.ops.decorr_cuda import CHAINS, decorr_post_cuda, \
     decorr_post_wvc_cuda
+from wvpk_torch.ops.decorr_select import decorr_post_any, \
+    decorr_post_wvc_any
 from wvpk_torch.ops.entropy import entropy_decode, wvc_corrections
 from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda, \
     entropy_decode_wvc_cuda
@@ -35,6 +37,7 @@ from wvpk_torch.ops.wvx_cuda import wvx_inject_cuda
 from wvpk_torch.ref import decode_block
 from wvpk_torch.testgen import EncodeSpec, encode_dsd_file, encode_file, \
     encode_multichannel
+from wvpk_torch.testgen.edge import EDGE_PROFILES, edge_states
 from wvpk_torch.testgen.encoder import encode_blocks
 
 pytestmark = pytest.mark.cuda
@@ -226,6 +229,102 @@ def test_decorr_wvc_kernel_matches_plain(cuda, name):
     for w, g in zip(want, got):
         assert torch.equal(w, g)
     assert not torch.equal(want[1], want[2])
+
+
+@pytest.mark.parametrize("profile", sorted(EDGE_PROFILES))
+def test_entropy_kernel_edge_streams_match_plain(cuda, profile):
+    """64 lanes of edge streams per profile (testgen/edge.py: words of 2
+    to 30 bits across the bit reader's refills, zero runs, LIMIT_ONES
+    escapes, truncated, corrupted and zero-filled payloads, the longest
+    lanes ending in the row's tail): residuals, intervals, broke and ndec
+    equal to the plain version's."""
+    (b,) = group_blocks(edge_states(profile, 64, seed=3))
+    t = bucket_tensors(b, cuda)
+    kw = _kw(b.profile)
+    if b.profile.has_wvc:
+        del kw["hybrid"]
+        got = entropy_decode_wvc_cuda(*_entropy_args(t), **kw)
+        want = entropy_decode(*_entropy_args(t), hybrid=True, wvc=True, **kw)
+    else:
+        got = entropy_decode_cuda(*_entropy_args(t), **kw)
+        want = entropy_decode(*_entropy_args(t), **kw)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    broke = want[-2]
+    assert broke.any() and not broke.all()
+
+
+def _chain_lanes(seed, T, L, chain, mono):
+    """_decorr_inputs with every lane on `chain`."""
+    arrays = list(_decorr_inputs(seed, T, L, mono))
+    arrays[1][:] = 0
+    arrays[1][:, :len(chain)] = chain
+    arrays[2][:, len(chain):] = 0
+    arrays[7][:] = len(chain)
+    return arrays
+
+
+@pytest.mark.parametrize("wvc", [False, True], ids=["plain", "wvc"])
+@pytest.mark.parametrize("name", [name for name, _m, _t in CHAINS])
+def test_decorr_chain_kernel_matches_plain(cuda, name, wvc):
+    """Each compiled chain, stereo and mono, with and without the wvc arm:
+    200 steps (several staged tiles, lanes ending mid-tile), 45 lanes,
+    against the plain version; the chain's own kernel ran."""
+    (mono, chain), = [(m, c) for n, m, c in CHAINS if n == name]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _chain_lanes(20 + len(name), 200, 45, chain, mono)]
+    cuda_fn, plain = ((decorr_post_wvc_cuda, decorr_post_wvc) if wvc
+                      else (decorr_post_cuda, decorr_post))
+    if wvc:
+        corr = np.random.default_rng(21).integers(
+            -2**12, 2**12, tuple(args[0].shape)).astype(np.int32)
+        args.insert(1, torch.from_numpy(corr).to(cuda))
+    before = cuda_fn.chain_launches[name]
+    got = cuda_fn(*args, mono=mono, static_terms=chain)
+    want = plain(*args, mono=mono)
+    torch.cuda.synchronize()
+    assert cuda_fn.chain_launches[name] == before + 1
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
+def test_decorr_mixed_bucket_segments_match_plain(cuda, mono):
+    """A mixed-chain bucket through decorr_post_any and its wvc arm with
+    its chain_segments: a run of each table chain of its channel count,
+    one of a chain outside the table and a mixed tail (both generic),
+    every run's kernel overlapping on side streams; equal to the plain
+    version on the CPU."""
+    T = 150
+    runs = [c for _n, m, c in CHAINS if m == mono] + [(3, 17, 2)]
+    parts = [_chain_lanes(30 + k, T, 20 + k, c, mono)
+             for k, c in enumerate(runs)]
+    parts.append(list(_decorr_inputs(39, T, 25, mono)))
+    arrays = [np.concatenate([p[i] for p in parts], axis=1 if i == 0 else 0)
+              for i in range(len(parts[0]))]
+    segs, pos = [], 0
+    for c, p in zip(runs + [None], parts):
+        n = p[0].shape[1]
+        segs.append((c, pos, pos + n, 16 if c is None else len(c)))
+        pos += n
+    broke = np.zeros(pos, bool)
+    broke[5] = True
+    arrays.append(broke)
+    corr = np.random.default_rng(40).integers(
+        -2**12, 2**12, arrays[0].shape).astype(np.int32)
+    on_cpu = [torch.from_numpy(a) for a in arrays]
+    on_card = [a.to(cuda) for a in on_cpu]
+    got = decorr_post_any(*on_card, mono=mono, chain_segments=tuple(segs))
+    want = decorr_post_any(*on_cpu, mono=mono)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g.cpu())
+    c_cpu, c_card = torch.from_numpy(corr), torch.from_numpy(corr).to(cuda)
+    got = decorr_post_wvc_any(on_card[0], c_card, *on_card[1:], mono=mono,
+                              chain_segments=tuple(segs))
+    want = decorr_post_wvc_any(on_cpu[0], c_cpu, *on_cpu[1:], mono=mono)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g.cpu())
 
 
 def wvx_inputs(seed, T, L, C):

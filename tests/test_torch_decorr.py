@@ -3,18 +3,25 @@ functions and the Pallas decorr kernel in interpret mode with fold_post,
 on the same random inputs (numpy, seeded). Integer codec: every
 comparison is exact (tolerance 0)."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from wvpk.ops.decorr import decorr_decode as jax_decorr_decode
 from wvpk.ops.decorr_pallas import decorr_decode_pallas
+from wvpk.ops.decorr_select import decorr_post_any as jax_decorr_post_any
 from wvpk.ops.pack import pack_samples as jax_pack_samples
 from wvpk.ops.post import fixup as jax_fixup
 from wvpk.ops.post import joint_mute_crc as jax_joint_mute_crc
+from wvpk_torch.ops import decorr_cuda
 from wvpk_torch.ops.decorr import decorr_decode, decorr_post
-from wvpk_torch.ops.decorr_cuda import decorr_post_cuda
-from wvpk_torch.ops.decorr_select import decorr_post_any
+from wvpk_torch.ops.decorr_cuda import CHAINS, GENERIC, decorr_post_cuda, \
+    lane_runs
+from wvpk_torch.ops.decorr_select import decorr_post_any, \
+    decorr_post_wvc_any
 from wvpk_torch.ops.pack import pack_samples
 from wvpk_torch.ops.post import fixup, joint_mute_crc
 
@@ -161,3 +168,125 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     args = tt(*rand_inputs(1, 8, 2, False), *post_inputs(1, 8, 2))
     with pytest.raises(ValueError, match="CUDA"):
         decorr_post_cuda(*args, mono=False)
+
+
+def chain_inputs(seed, T, L, chain, mono):
+    """rand_inputs with every lane on `chain` (num_terms its length)."""
+    res, terms, deltas, wa, wb, ha, hb, nt = rand_inputs(seed, T, L, mono)
+    terms[:] = 0
+    terms[:, :len(chain)] = chain
+    deltas[:, len(chain):] = 0
+    nt[:] = len(chain)
+    return res, terms, deltas, wa, wb, ha, hb, nt
+
+
+@pytest.mark.parametrize("name", [name for name, _m, _t in CHAINS])
+def test_decorr_post_matches_pallas_static_terms(name):
+    """Lanes of one chain of the CUDA kernels' table: the plain version
+    against wvpk's Pallas kernel specialised to the chain (static_terms,
+    fold_post, interpret mode), and decorr_post_any given the chain
+    (the plain path computes the same function whatever it is told)."""
+    (mono, chain), = [(m, t) for n, m, t in CHAINS if n == name]
+    T, L = 40, 6
+    args = chain_inputs(60 + len(name), T, L, chain, mono)
+    ns, joint, lim = post_inputs(60, T, L)
+    w_out, w_crc, w_fb = decorr_decode_pallas(
+        *args, mono=mono, num_terms_max=len(chain), interpret=True,
+        static_terms=chain, fold_post_args=(ns, joint, lim))
+    out, crc, fb = decorr_post(*tt(*args, ns, joint, lim), mono=mono)
+    np.testing.assert_array_equal(np.asarray(w_crc), crc.numpy())
+    np.testing.assert_array_equal(np.asarray(w_fb), fb.numpy())
+    valid = np.arange(T)[:, None] < ns[None, :]
+    np.testing.assert_array_equal(
+        np.where(valid[..., None], np.asarray(w_out), 0), out.numpy())
+    broke = np.zeros(L, bool)
+    plain = decorr_post_any(*tt(*args, ns, joint, lim, broke), mono=mono)
+    told = decorr_post_any(*tt(*args, ns, joint, lim, broke), mono=mono,
+                           static_terms=chain)
+    for a, b in zip(plain, told):
+        assert torch.equal(a, b)
+
+
+def _segmented_inputs(seed, T, mono):
+    """Lanes in runs of two table chains and a mixed tail, with the
+    chain_segments staging gives such a bucket."""
+    a, b = [t for _n, m, t in CHAINS if m == mono][:2]
+    parts = [chain_inputs(seed, T, 4, a, mono),
+             chain_inputs(seed + 1, T, 3, b, mono),
+             rand_inputs(seed + 2, T, 5, mono)]
+    args = [np.concatenate([p[i] for p in parts], axis=1 if i == 0 else 0)
+            for i in range(8)]
+    tail = max(int(args[-1][7:].max()), 1)
+    return args, ((a, 0, 4, len(a)), (b, 4, 7, len(b)), (None, 7, 12, tail))
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
+def test_decorr_post_any_chain_segments_agree(mono):
+    """decorr_post_any and its wvc arm with and without chain_segments on
+    a segmented bucket: the same results, equal to wvpk's decorr_post_any
+    given the same segments."""
+    T = 48
+    args, segs = _segmented_inputs(70 + mono, T, mono)
+    L = args[0].shape[1]
+    ns, joint, lim = post_inputs(70, T, L)
+    broke = np.arange(L) == 3
+    inputs = tt(*args, ns, joint, lim, broke)
+    plain = decorr_post_any(*inputs, mono=mono)
+    seg = decorr_post_any(*inputs, mono=mono, chain_segments=segs)
+    want = jax_decorr_post_any(*args, ns, joint, lim, broke, mono=mono,
+                               num_terms_max=None, chain_segments=segs)
+    for a, b, w in zip(plain, seg, want):
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(np.asarray(w), b.numpy())
+    corr = tt(np.random.default_rng(71).integers(
+        -300, 300, args[0].shape).astype(np.int32))[0]
+    wvc = [inputs[0], corr] + inputs[1:]
+    for a, b in zip(decorr_post_wvc_any(*wvc, mono=mono),
+                    decorr_post_wvc_any(*wvc, mono=mono,
+                                        chain_segments=segs)):
+        assert torch.equal(a, b)
+
+
+def test_chain_table_matches_cuda_source():
+    """ops/decorr_cuda.py::CHAINS names the instantiations of
+    csrc/decorr.cu's WVPK_CHAIN lines: the same ids, channel counts and
+    terms, in the same order."""
+    src = (Path(decorr_cuda.__file__).parents[1] / "csrc" / "decorr.cu"
+           ).read_text()
+    lines = re.findall(r"^\s*WVPK_CHAIN\((\d+), (true|false), ([-\d, ]+)\)",
+                       src, re.M)
+    got = [(int(i), m == "true", tuple(int(t) for t in terms.split(",")))
+           for i, m, terms in lines]
+    assert got == [(k, m, t) for k, (_n, m, t) in enumerate(CHAINS)]
+
+
+LANE_RUNS = {
+    "static_terms": (dict(static_terms=(18, 17, 2)), False, [(0, 0, 10)]),
+    "static_mono": (dict(static_terms=(18, 17, 2)), True, [(4, 0, 10)]),
+    "static_outside": (dict(static_terms=(5, 1)), False, [(GENERIC, 0, 10)]),
+    "mono_cross_terms": (dict(static_terms=(18, -1)), True,
+                         [(GENERIC, 0, 10)]),
+    "none": ({}, False, [(GENERIC, 0, 10)]),
+    "segments": (dict(chain_segments=(((17, 17), 0, 3, 2),
+                                      ((5, 1), 3, 6, 2),
+                                      (None, 6, 10, 4))), False,
+                 [(1, 0, 3), (GENERIC, 3, 10)]),
+    "static_wins": (dict(static_terms=(17, 17),
+                         chain_segments=(((17, 17), 0, 10, 2),)), False,
+                    [(1, 0, 10)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LANE_RUNS))
+def test_lane_runs(name):
+    """The kernel runs a call launches: the chain's compiled kernel where
+    CHAINS has it (mono chains by their own ids), the generic kernel
+    otherwise, adjacent generic runs merged."""
+    kw, mono, want = LANE_RUNS[name]
+    assert lane_runs(10, mono, **kw) == want
+
+
+def test_lane_runs_must_tile_the_bucket():
+    with pytest.raises(ValueError, match="tile"):
+        lane_runs(10, False, chain_segments=(((17, 17), 0, 4, 2),
+                                             (None, 5, 10, 3)))

@@ -154,18 +154,92 @@ def _pcm_states(corpus, blocks=_blocks):
             if not name.startswith("dsd") for b in blocks(entry)]
 
 
-def test_staging_matches_wvpk(corpus):
-    mine = group_blocks(_pcm_states(corpus))
-    theirs = jax_group_blocks(_pcm_states(corpus, _jax_blocks))
-    assert len(mine) == len(theirs) > 1
+def _same_buckets(mine, theirs):
+    """Every Bucket field equal (chain_segments and static_terms as
+    tuples), and the lanes in the same order."""
+    assert len(mine) == len(theirs)
     fields = [f for f in mine[0].__dataclass_fields__
-              if f not in ("profile", "states")]
+              if f not in ("profile", "states", "chain_segments")]
     for a, b in zip(mine, theirs):
         assert a.profile.__dict__ == b.profile.__dict__
+        assert a.chain_segments == b.chain_segments
+        assert a.static_terms == b.static_terms
+        assert [st.header.crc for st in a.states] == \
+            [st.header.crc for st in b.states]
         for f in fields:
             np.testing.assert_array_equal(np.asarray(getattr(a, f)),
                                           np.asarray(getattr(b, f)),
                                           err_msg=f)
+
+
+def test_staging_matches_wvpk(corpus):
+    mine = group_blocks(_pcm_states(corpus))
+    theirs = jax_group_blocks(_pcm_states(corpus, _jax_blocks))
+    assert len(mine) > 1
+    _same_buckets(mine, theirs)
+
+
+# A mixed-chain corpus: 64 blocks of 256 samples for each chain of the
+# decorrelation kernels' table (the bench chain and the three encoder
+# presets), 64 of a chain outside it and 20 of a rarer one, which falls
+# into the generic tail segment.
+MIXED_CHAINS = {
+    "bench": ((18, 17, 2), 64),
+    "fast": ((17, 17), 64),
+    "default": ((18, 18, 2, 17, 3), 64),
+    "high": ((18, 18, 18, -2, 2, 3, 5, -1, 17, 4), 64),
+    "outside": ((3, 17, -3), 64),
+    "rare": ((18, 2), 20),
+}
+
+
+@pytest.fixture(scope="module")
+def mixed_chains():
+    """The mixed-chain corpus' .wv files, interleaved block by block."""
+    files = []
+    for k, (terms, nblocks) in enumerate(MIXED_CHAINS.values()):
+        files.append(encode_file(noise(256 * nblocks, 2, 1500 + 400 * k,
+                                       40 + k),
+                                 EncodeSpec(block_samples=256, joint=True,
+                                            terms=terms,
+                                            deltas=(2,) * len(terms))))
+    return files
+
+
+def _mixed_states(files, parse):
+    per_file = [[b.state for b in parse(f)] for f in files]
+    most = max(len(p) for p in per_file)
+    return [p[i] for i in range(most) for p in per_file if i < len(p)]
+
+
+def test_mixed_chain_staging_matches_wvpk(mixed_chains):
+    """Lanes sorted by chain as wvpk sorts them: the same lane order,
+    indices and chain_segments, every other field equal."""
+    mine = group_blocks(_mixed_states(mixed_chains, parse_blocks))
+    theirs = jax_group_blocks(_mixed_states(mixed_chains, jax_parse_blocks))
+    _same_buckets(mine, theirs)
+    (b,) = mine
+    assert b.static_terms is None
+    chains = [c for c, *_ in b.chain_segments]
+    assert chains[-1] is None and len(chains) == len(MIXED_CHAINS)
+    assert set(chains[:-1]) == {t for t, n in MIXED_CHAINS.values()
+                                if n >= 64}
+    for chain, start, stop, ntm in b.chain_segments:
+        for st in b.states[start:stop]:
+            got = tuple(int(t) for t in st.terms[:st.num_terms])
+            assert got == chain or (chain is None and len(got) <= ntm)
+
+
+def test_mixed_chain_decode_states_matches_wvpk(mixed_chains):
+    """The mixed-chain corpus through decode_states on the CPU: equal to
+    wvpk's engine block for block, and lossless."""
+    want = jax_decode_states(_mixed_states(mixed_chains, jax_parse_blocks))
+    got = decode_states(_mixed_states(mixed_chains, parse_blocks),
+                        device="cpu")
+    assert len(got) == len(want)
+    for w, g in zip(want, got):
+        _same(w, g)
+    assert not any(g.crc_error or g.mute_error for g in got)
 
 
 def _same(w, g, msg=""):

@@ -1,9 +1,11 @@
 // WavPack decorrelation with the post step folded in, for Hopper (sm_90a):
-// one thread per lane, generic term chain.
+// one thread per lane; one kernel compiled for each term chain of a table,
+// and a generic kernel for any chain.
 //
 // Replaces wvpk/ops/decorr_pallas.py::_decorr_kernel called with
-// fold_post. Its plain version is wvpk_torch/ops/decorr.py::decorr_post.
-// The wvc arm (plain version decorr.py::decorr_post_wvc) folds
+// fold_post, and its static_terms / chain_segments unrolls. The plain
+// version is wvpk_torch/ops/decorr.py::decorr_post. The wvc arm (plain
+// version decorr.py::decorr_post_wvc) folds
 // wvpk/engine/fused.py::fused_decode_wvc's post steps into the same pass:
 // given each word's correction it runs the chain on the lossy residuals,
 // adds the corrections after the chain and before the joint undo (the
@@ -12,32 +14,53 @@
 // mute point, and the exact one, which the wvc header checks, with the
 // exact samples' mute point.
 // Per sample, the lane's chain of up to 16 passes runs in order
-// (UnpackUtils.cs:688-1240): the predictor is (w * sam + 512) >> 10 in 64
-// bits truncated to int32; weights move by +/-delta on sign agreement,
-// clamped to +/-1024 for the cross-channel terms -1, -2, -3; each pass keeps
-// an 8-deep history ring per channel. Then, as fold_post does, the
-// joint-stereo undo, the mute check and the running CRC (crc = 3 crc + x,
-// a stereo pair 9 crc + 3 l + r) fold into the same sample loop
+// (UnpackUtils.cs:688-1240), each pass the body in decorr_pass.cuh that
+// the encode kernels run too. Then, as fold_post does, the joint-stereo
+// undo, the mute check and the running CRC (crc = 3 crc + x, a stereo
+// pair 9 crc + 3 l + r) fold into the same sample loop
 // (UnpackUtils.cs:609-646).
 //
 // What bounds it: a lane's samples form a serial recurrence through the
 // weights and rings, so the parallelism is the lane count; a bucket of the
-// bench corpus has ~8,400 lanes, ~two warps per SM on 132 SMs. The kernel
-// is bound by the latency of each thread's dependent integer operations
-// and its local-memory traffic, not by device-memory bandwidth (it reads
-// and writes 8 bytes per stereo sample).
+// bench corpus has ~8,300 lanes, ~two warps per SM on 132 SMs. A launch
+// takes as long as one lane's chain: T steps, each issuing its
+// passes' integer operations (~20 a pass) and the post step, with the
+// recurrence of one pass (a 64-bit multiply-add, a shift and an add, from
+// this sample's output to the next sample's prediction) as the floor.
+// Device memory is far from the limit: 8 bytes in and 8 out per stereo
+// sample.
 //
-// Design: weights (16 x 2) and rings (16 x 2 x 8) sit in per-thread arrays,
-// which the compiler keeps in local memory (L1-cached) because the pass
-// and ring-slot indices are dynamic. The 64-bit product replaces the
-// Pallas kernel's 16-bit-limb emulation; int32 wrapping adds run in
-// unsigned arithmetic. Terms mostly agree across the lanes of a warp (one
-// encoder preset per file), so branching on the term class costs little
-// divergence. Samples in (T, L, C) layout make a warp's loads and stores
-// at one sample index contiguous. Past a lane's sample count the output is
-// zero; the caller masks muted lanes.
+// Design:
+// - One kernel for each chain of a table (decorr_chain, the WVPK_CHAIN
+//   lines below; ops/decorr_cuda.py::CHAINS names the same list): the
+//   chain's terms are template arguments and the time loop is unrolled by
+//   8, so the ring slot m = t & 7, every pass index and every ring index
+//   are constants. The weights and the 8-deep rings then live in
+//   registers (ptxas: no stack frame), where a chain read at run time
+//   keeps them in local memory, and within a group of 8 steps the
+//   compiler overlaps pass k of one sample with the later passes of the
+//   one before.
+// - The generic kernel (decorr_generic) takes each lane's chain at run
+//   time from per-thread arrays in local memory; it serves every other
+//   chain and the mixed tail of a bucket.
+// - Residuals (and, for wvc, corrections) are staged ahead: each thread
+//   copies its lane's next 32 steps into a double-buffered ring in shared
+//   memory with cp.async while it computes the current 32, so a step reads
+//   shared memory instead of waiting on device memory.
+// - The wrapper splits a bucket into lane runs by chain (staging's
+//   chain_segments) and launches each run's kernel on its lane range of
+//   the (T, L, C) arrays (a lane offset and the row stride L, no copy).
+//   A uniform bucket, the main path's among them, is one run. The runs of
+//   a mixed bucket go on side streams, so they share the card: measured
+//   against the runs in sequence and against one launch whose blocks
+//   switch on their run's chain (PERF.md, Findings).
+// Samples in (T, L, C) layout make a warp's stores at one sample index
+// contiguous. Past a lane's sample count the output is zero; the caller
+// masks muted lanes.
 
 #include <cstdint>
+#include <utility>
+
 #include <cuda_runtime.h>
 
 #include "decorr_pass.cuh"
@@ -47,6 +70,14 @@ namespace {
 using namespace wvpk;
 
 constexpr int THREADS = 32;
+constexpr int TILE = 32;           // steps of one staged tile
+
+struct Args {
+  const int *res, *corr, *terms, *deltas, *wa0, *wb0, *hist_a, *hist_b,
+      *num_terms, *nsamples, *joint, *mute_thr;
+  int *out, *crc_out, *crc_wvc_out, *first_bad;
+  int L, T;
+};
 
 __device__ __forceinline__ int cabs32(int v) {
   return v < 0 ? (int)(0u - (unsigned)v) : v;
@@ -75,88 +106,270 @@ __device__ __forceinline__ void crc_step(uint32_t& crc, int out_l,
              : crc * 9u + (unsigned)out_l * 3u + (unsigned)out_r;
 }
 
-template <bool MONO, bool WVC>
-__global__ void __launch_bounds__(THREADS)
-decorr_kernel(const int* __restrict__ res, const int* __restrict__ corr,
-              const int* __restrict__ terms,
-              const int* __restrict__ deltas, const int* __restrict__ wa0,
-              const int* __restrict__ wb0, const int* __restrict__ hist_a,
-              const int* __restrict__ hist_b,
-              const int* __restrict__ num_terms,
-              const int* __restrict__ nsamples,
-              const int* __restrict__ joint,
-              const int* __restrict__ mute_thr, int* __restrict__ out,
-              int* __restrict__ crc_out, int* __restrict__ crc_wvc_out,
-              int* __restrict__ first_bad, int L, int T) {
-  constexpr int C = MONO ? 1 : 2;
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
+// cp.async of BYTES (4 or 8) from device to shared memory, its commit and
+// the wait for every group but the newest.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(int* dst, const int* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
 
-  int nt = min(max(num_terms[lane], 0), MAX_NTERMS);
-  int term[MAX_NTERMS], delta[MAX_NTERMS], wa[MAX_NTERMS], wb[MAX_NTERMS];
-  int ra[MAX_NTERMS][8], rb[MAX_NTERMS][8];
-  for (int k = 0; k < nt; ++k) {
-    int i = lane * MAX_NTERMS + k;
-    term[k] = terms[i];
-    delta[k] = deltas[i];
-    wa[k] = wa0[i];
-    wb[k] = MONO ? 0 : wb0[i];
-    for (int j = 0; j < 8; ++j) {
-      ra[k][j] = hist_a[i * 8 + j];
-      rb[k][j] = MONO ? 0 : hist_b[i * 8 + j];
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// A block's staging ring: two tiles of TILE steps x THREADS lanes x C
+// values of the residuals, then as much for the corrections with WVC.
+template <bool MONO, bool WVC>
+__host__ __device__ constexpr int ring_ints() {
+  return (WVC ? 2 : 1) * 2 * TILE * THREADS * (MONO ? 1 : 2);
+}
+
+// One thread's view of the ring: its lane's values sit at column
+// threadIdx.x of each step row, and only this thread writes or reads them.
+template <bool MONO, bool WVC>
+struct Stage {
+  static constexpr int C = MONO ? 1 : 2;
+  static constexpr int ROW = THREADS * C;    // ints of one step row
+  static constexpr int BUF = TILE * ROW;     // ints of one tile
+  int* sm;
+  const int* in;
+  const int* cin;
+  size_t row;
+  int ns;
+
+  // Queue the copies of tile `k` (steps below ns) into buffer k & 1 as
+  // one commit group.
+  __device__ __forceinline__ void fetch(int k) {
+    const int t0 = k * TILE;
+    int* dst = sm + (k & 1) * BUF;
+#pragma unroll 8
+    for (int i = 0; i < TILE; ++i) {
+      if (t0 + i < ns) {
+        const size_t g = (size_t)(t0 + i) * row;
+        cp_async<4 * C>(dst + i * ROW, in + g);
+        if (WVC) cp_async<4 * C>(dst + 2 * BUF + i * ROW, cin + g);
+      }
+    }
+    cp_commit();
+  }
+
+  // Step t's residuals (corrections at + 2 * BUF); its tile has landed.
+  __device__ __forceinline__ const int* at(int t) const {
+    return sm + ((t / TILE) & 1) * BUF + (t % TILE) * ROW;
+  }
+};
+
+// The state of a chain fixed at compile time: every index below is a
+// constant once scan() has unrolled the step loop, so the arrays are
+// registers.
+template <bool MONO, int... TV>
+struct ChainState {
+  static constexpr int K = sizeof...(TV);
+  int d[K], wa[K], wb[K], ra[K][8], rb[K][8];
+
+  __device__ __forceinline__ void load(const Args& a, int lane) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = lane * MAX_NTERMS + k;
+      d[k] = a.deltas[i];
+      wa[k] = a.wa0[i];
+      wb[k] = MONO ? 0 : a.wb0[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        ra[k][j] = a.hist_a[i * 8 + j];
+        rb[k][j] = MONO ? 0 : a.hist_b[i * 8 + j];
+      }
     }
   }
-  const int ns_lane = nsamples[lane];
-  const int ns = min(ns_lane, T);
-  const bool jt = joint[lane] != 0;
-  const int thr = mute_thr[lane];
-  // with WVC, crc/fb follow the exact samples and crc_l/fb_l the lossy
-  uint32_t crc = 0xFFFFFFFFu, crc_l = 0xFFFFFFFFu;
-  int fb = ns_lane, fb_l = ns_lane;
 
-  const size_t row = (size_t)L * C;
-  const int* in = res + (size_t)lane * C;
-  const int* cin = WVC ? corr + (size_t)lane * C : nullptr;
-  int* o = out + (size_t)lane * C;
-  for (int t = 0; t < ns; ++t, in += row, o += row) {
-    const int m = t & 7;
-    int va = in[0];
-    int vb = MONO ? 0 : in[1];
+  template <size_t... I>
+  __device__ __forceinline__ void passes(std::index_sequence<I...>, int m,
+                                         int& va, int& vb) {
+    if constexpr (MONO)
+      ((va = apply_mono(TV, d[I], wa[I], ra[I], m, va)), ...);
+    else
+      (apply_stereo(TV, d[I], wa[I], wb[I], ra[I], rb[I], m, va, vb), ...);
+  }
+
+  __device__ __forceinline__ void apply(int m, int& va, int& vb) {
+    passes(std::make_index_sequence<K>{}, m, va, vb);
+  }
+};
+
+// Any chain, read from the lane's arrays at run time (local memory).
+template <bool MONO>
+struct GenericState {
+  int nt;
+  int term[MAX_NTERMS], d[MAX_NTERMS], wa[MAX_NTERMS], wb[MAX_NTERMS];
+  int ra[MAX_NTERMS][8], rb[MAX_NTERMS][8];
+
+  __device__ __forceinline__ void load(const Args& a, int lane) {
+    nt = min(max(a.num_terms[lane], 0), MAX_NTERMS);
+    for (int k = 0; k < nt; ++k) {
+      const int i = lane * MAX_NTERMS + k;
+      term[k] = a.terms[i];
+      d[k] = a.deltas[i];
+      wa[k] = a.wa0[i];
+      wb[k] = MONO ? 0 : a.wb0[i];
+      for (int j = 0; j < 8; ++j) {
+        ra[k][j] = a.hist_a[i * 8 + j];
+        rb[k][j] = MONO ? 0 : a.hist_b[i * 8 + j];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void apply(int m, int& va, int& vb) {
     for (int k = 0; k < nt; ++k) {
       if (MONO)
-        va = apply_mono(term[k], delta[k], wa[k], ra[k], m, va);
+        va = apply_mono(term[k], d[k], wa[k], ra[k], m, va);
       else
-        apply_stereo(term[k], delta[k], wa[k], wb[k], ra[k], rb[k], m, va,
-                     vb);
+        apply_stereo(term[k], d[k], wa[k], wb[k], ra[k], rb[k], m, va, vb);
     }
+  }
+};
 
-    // folded joint-stereo undo, mute check and CRC
+// One sample through the chain, the post step and the CRCs.
+template <bool MONO, bool WVC, class State>
+struct Lane {
+  State& s;
+  const Stage<MONO, WVC>& st;
+  int* o;
+  size_t row;
+  bool jt;
+  int thr, ns_lane;
+  uint32_t crc, crc_l;
+  int fb, fb_l;
+
+  __device__ __forceinline__ void step(int t, int m) {
+    const int* v = st.at(t);
+    int va = v[0];
+    int vb = MONO ? 0 : v[1];
+    s.apply(m, va, vb);
     int out_l, out_r;
     if (WVC) {
       if (post<MONO>(va, vb, jt, thr, out_l, out_r) && fb_l == ns_lane)
         fb_l = t;
       if (t < fb_l) crc_step<MONO>(crc_l, out_l, out_r);
-      va = add32(va, cin[0]);
-      if (!MONO) vb = add32(vb, cin[1]);
-      cin += row;
+      const int* cv = v + 2 * Stage<MONO, WVC>::BUF;
+      va = add32(va, cv[0]);
+      if (!MONO) vb = add32(vb, cv[1]);
     }
     if (post<MONO>(va, vb, jt, thr, out_l, out_r) && fb == ns_lane) fb = t;
     if (t < fb) crc_step<MONO>(crc, out_l, out_r);
-    o[0] = out_l;
-    if (!MONO) o[1] = out_r;
+    int* op = o + (size_t)t * row;
+    op[0] = out_l;
+    if (!MONO) op[1] = out_r;
   }
-  for (int t = ns; t < T; ++t, o += row) {
-    o[0] = 0;
-    if (!MONO) o[1] = 0;
+};
+
+// A lane's whole scan: staging, the steps in groups of 8 (m = t & 7 a
+// constant in each), zeros past its sample count, the CRCs.
+template <bool MONO, bool WVC, class State>
+__device__ __forceinline__ void scan(const Args& a, int lane, int* ring,
+                                     State& s) {
+  constexpr int C = MONO ? 1 : 2;
+  const int ns_lane = a.nsamples[lane];
+  const int ns = max(min(ns_lane, a.T), 0);
+  const size_t row = (size_t)a.L * C;
+  Stage<MONO, WVC> st{ring + threadIdx.x * C,
+                            a.res + (size_t)lane * C,
+                            WVC ? a.corr + (size_t)lane * C : nullptr, row,
+                            ns};
+  Lane<MONO, WVC, State> ln{s,  st, a.out + (size_t)lane * C, row,
+                            a.joint[lane] != 0, a.mute_thr[lane], ns_lane,
+                            0xFFFFFFFFu, 0xFFFFFFFFu, ns_lane, ns_lane};
+  const int ntiles = (ns + TILE - 1) / TILE;
+  if (ntiles > 0) st.fetch(0);
+  for (int k = 0; k < ntiles; ++k) {
+    if (k + 1 < ntiles)
+      st.fetch(k + 1);
+    else
+      cp_commit();  // an empty group: the wait below covers tile k
+    cp_wait_all_but_newest();
+#pragma unroll 1
+    for (int t8 = k * TILE; t8 < k * TILE + TILE; t8 += 8) {
+      if (t8 + 8 <= ns) {
+#pragma unroll
+        for (int m = 0; m < 8; ++m) ln.step(t8 + m, m);
+      } else {
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          if (t8 + m < ns) ln.step(t8 + m, m);
+      }
+    }
+  }
+  for (int t = ns; t < a.T; ++t) {
+    int* op = ln.o + (size_t)t * row;
+    op[0] = 0;
+    if (!MONO) op[1] = 0;
   }
   if (WVC) {
-    crc_out[lane] = (int)crc_l;
-    crc_wvc_out[lane] = (int)crc;
+    a.crc_out[lane] = (int)ln.crc_l;
+    a.crc_wvc_out[lane] = (int)ln.crc;
   } else {
-    crc_out[lane] = (int)crc;
+    a.crc_out[lane] = (int)ln.crc;
   }
-  first_bad[lane] = fb;
+  a.first_bad[lane] = ln.fb;
 }
+
+template <bool MONO, bool WVC, int... TV>
+__global__ void __launch_bounds__(THREADS)
+decorr_chain(Args a, int lane0, int lane1) {
+  __shared__ __align__(16) int ring[ring_ints<MONO, WVC>()];
+  const int lane = lane0 + blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= lane1) return;
+  ChainState<MONO, TV...> s;
+  s.load(a, lane);
+  scan<MONO, WVC>(a, lane, ring, s);
+}
+
+template <bool MONO, bool WVC>
+__global__ void __launch_bounds__(THREADS)
+decorr_generic(Args a, int lane0, int lane1) {
+  __shared__ __align__(16) int ring[ring_ints<MONO, WVC>()];
+  const int lane = lane0 + blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= lane1) return;
+  GenericState<MONO> s;
+  s.load(a, lane);
+  scan<MONO, WVC>(a, lane, ring, s);
+}
+
+using Kernel = void (*)(Args, int, int);
+
+// The table of compiled chains: WVPK_CHAIN(id, mono, terms...). Its ids,
+// channel counts and terms are ops/decorr_cuda.py::CHAINS, in order.
+#define WVPK_CHAIN(ID, MONO_, ...)                                     \
+  case ID:                                                             \
+    if constexpr (MONO_ == MONO) return decorr_chain<MONO, WVC, __VA_ARGS__>; \
+    break;
+
+// The kernel compiled for chain `id`, else (an id of the other channel
+// count too) the generic one.
+template <bool MONO, bool WVC>
+Kernel kernel_for(int id) {
+  switch (id) {
+    WVPK_CHAIN(0, false, 18, 17, 2)
+    WVPK_CHAIN(1, false, 17, 17)
+    WVPK_CHAIN(2, false, 18, 18, 2, 17, 3)
+    WVPK_CHAIN(3, false, 18, 18, 18, -2, 2, 3, 5, -1, 17, 4)
+    WVPK_CHAIN(4, true, 18, 17, 2)
+    WVPK_CHAIN(5, true, 17, 17)
+    WVPK_CHAIN(6, true, 18, 18, 2, 17, 3)
+    WVPK_CHAIN(7, true, 18, 18, 18, 2, 3, 5, 17, 4)
+    default:
+      break;
+  }
+  return decorr_generic<MONO, WVC>;
+}
+
+#undef WVPK_CHAIN
 
 }  // namespace
 
@@ -165,7 +378,9 @@ decorr_kernel(const int* __restrict__ res, const int* __restrict__ corr,
 // num_terms, nsamples, joint, mute_thr (L,) int32; crc, first_bad and,
 // with `wvc`, crc_wvc (L,) int32. Without wvc, crc covers the output; with
 // it, crc the lossy samples and crc_wvc the exact ones, and first_bad is the
-// exact samples'. Returns the launch's CUDA error code.
+// exact samples'. One launch on `stream` of chain `chain`'s kernel (-1 or
+// an id outside the table: the generic one) on lanes [lo, hi); the other
+// lanes are not written. Returns its CUDA error.
 extern "C" int wvpk_decorr_post(const void* res, const void* corr,
                                 const void* terms, const void* deltas,
                                 const void* wa0, const void* wb0,
@@ -174,23 +389,26 @@ extern "C" int wvpk_decorr_post(const void* res, const void* corr,
                                 const void* joint, const void* mute_thr,
                                 void* out, void* crc, void* crc_wvc,
                                 void* first_bad, int L, int T, int mono,
-                                int wvc, void* stream) {
-  dim3 grid((L + THREADS - 1) / THREADS), block(THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-#define WVPK_DECORR_ARGS                                                     \
-  (const int*)res, (const int*)corr, (const int*)terms, (const int*)deltas, \
-      (const int*)wa0, (const int*)wb0, (const int*)hist_a,                 \
-      (const int*)hist_b, (const int*)num_terms, (const int*)nsamples,      \
-      (const int*)joint, (const int*)mute_thr, (int*)out, (int*)crc,        \
-      (int*)crc_wvc, (int*)first_bad, L, T
-  if (mono && wvc)
-    decorr_kernel<true, true><<<grid, block, 0, s>>>(WVPK_DECORR_ARGS);
-  else if (mono)
-    decorr_kernel<true, false><<<grid, block, 0, s>>>(WVPK_DECORR_ARGS);
-  else if (wvc)
-    decorr_kernel<false, true><<<grid, block, 0, s>>>(WVPK_DECORR_ARGS);
-  else
-    decorr_kernel<false, false><<<grid, block, 0, s>>>(WVPK_DECORR_ARGS);
-#undef WVPK_DECORR_ARGS
-  return (int)cudaGetLastError();
+                                int wvc, int chain, int lo, int hi,
+                                void* stream) {
+  if (lo < 0 || hi > L || lo >= hi) return (int)cudaErrorInvalidValue;
+  Args a{(const int*)res,      (const int*)corr,
+         (const int*)terms,    (const int*)deltas,
+         (const int*)wa0,      (const int*)wb0,
+         (const int*)hist_a,   (const int*)hist_b,
+         (const int*)num_terms, (const int*)nsamples,
+         (const int*)joint,    (const int*)mute_thr,
+         (int*)out,            (int*)crc,
+         (int*)crc_wvc,        (int*)first_bad,
+         L,                    T};
+  const Kernel fn =
+      mono ? (wvc ? kernel_for<true, true>(chain)
+                  : kernel_for<true, false>(chain))
+           : (wvc ? kernel_for<false, true>(chain)
+                  : kernel_for<false, false>(chain));
+  void* params[] = {&a, &lo, &hi};
+  const cudaError_t e = cudaLaunchKernel(
+      (const void*)fn, dim3((hi - lo + THREADS - 1) / THREADS), dim3(THREADS),
+      params, 0, (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -17,26 +17,48 @@
 //
 // What bounds it: every word's position in a lane's bitstream depends on
 // the length of the word before, so a lane is one serial scan and the only
-// parallelism is the lane count. A bucket of the bench corpus has ~8,400
-// lanes: ~8,400 threads, about two warps per SM on 132 SMs where an SM can
-// hold 64. The kernel is therefore bound by the latency of each thread's
-// dependent loads and branches, not by memory bandwidth (it reads each
-// payload byte once and writes 4 bytes per sample and channel, 12 with
-// WVC).
+// parallelism is the lane count. A bucket of the bench corpus has ~8,300
+// lanes: about two warps per SM on 132 SMs, where an SM can hold 64. A
+// launch therefore takes as long as one lane's chain of dependent
+// operations, ~8,200 words of a 16-bit stereo block, and not the bytes it
+// moves (each payload byte read once, 4 bytes written per sample and
+// channel, 12 with WVC: ~0.1 ms of the card's bandwidth).
 //
-// Design: each thread reads its lane's contiguous words through a 64-bit
-// window (two 32-bit loads, served from L1 for consecutive reads) and takes
-// real branches for zero runs, escapes and gammas: they are rare, and the
-// lanes of a warp mostly take the same path. The hybrid search is a short
-// data-dependent loop (it stops when hi - lo reaches the error limit, at
-// most 32 steps), not the Pallas kernel's 32 unrolled selects; all of its
-// bits come from the one window already loaded for the value. The hybrid
-// state (slow levels, 64-bit bitrate accumulators, error limits, deltas)
-// lives in registers; the log2/exp2 tables sit in shared memory. The
-// profile is a template, so the lossless kernel carries none of it. Warps
-// are one per block so the ~260 blocks spread over all SMs. Outputs are
-// written in the (T, L, C) layout, so a warp's stores at one sample index
-// are contiguous.
+// Design: the chain of a word is kept short.
+// - A register bit reader (BitBuf): each thread holds its lane's next
+//   33 to 64 stream bits in a 64-bit register, with the count of valid
+//   bits. A word's unary count (__ffsll of the inverted buffer), its code
+//   (read_code or the hybrid search) and its sign bit read that register;
+//   when fewer than 33 bits remain, one 32-bit word shifts in. That word
+//   was loaded one refill earlier at an address that is a counter, not a
+//   function of the bits just decoded, so its latency leaves the chain: a
+//   16-bit word of ~11 bits costs a load every ~3 words, where a window
+//   read at each bit position cost two dependent loads 2-4 times a word.
+//   Zero runs and LIMIT_ONES escapes read their Elias-gamma codes through
+//   the same register.
+// - The tail of a row: Stream::peek clamps a position past the start of
+//   the row's last word to that start and reads the EOF fill after it,
+//   which decides `broke` and `ndec` on truncated and corrupt streams. A
+//   step that starts within TAIL_BITS of the last word's start (every read
+//   of a step lies within 356 bits of its start) and every lane whose
+//   medians do not fit int32 run the peek-based path, which is the
+//   int64 decoder of earlier versions unchanged; before that point both
+//   paths read the same bits.
+// - 32-bit arithmetic where the value provably fits: the bit position
+//   (the wrapper checks W * 32 < 2^31), unary counts, code widths and the
+//   medians (med_inc / med_dec below state why the 32-bit update equals
+//   the int64 one on every int32 median); the interval base and the value
+//   stay int64, as an escape's ones count can reach 2^32.
+// - Real branches for zero runs, escapes and gammas: they are rare, and
+//   the lanes of a warp mostly take the same path. The hybrid search is a
+//   short data-dependent loop (it stops when hi - lo reaches the error
+//   limit, at most 32 steps), not the Pallas kernel's 32 unrolled selects.
+//   The hybrid state (slow levels, 64-bit bitrate accumulators, error
+//   limits, deltas) lives in registers; the log2/exp2 tables sit in shared
+//   memory. The profile is a template, so the lossless kernel carries none
+//   of it. Warps are one per block so the ~260 blocks spread over all SMs.
+//   Outputs are written in the (T, L, C) layout, so a warp's stores at one
+//   sample index are contiguous.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -49,34 +71,140 @@ namespace {
 using namespace wvpk;
 
 constexpr int LIMIT_ONES = 16;
-constexpr long long DIV0 = 128, DIV1 = 64, DIV2 = 32;
 constexpr int THREADS = 32;
+// A step (two words) reads at most 2 x 178 bits past its start: a
+// zero-run gamma (64), a LIMIT_ONES escape (17 + 64) and a value with its
+// sign (33) per word. Steps that start closer than this to the last
+// word's start take the peek path.
+constexpr int TAIL_BITS = 384;
+
+// The register bit reader over a lane's row of W words: buf holds the nb
+// (33..64 after fill) next stream bits from position pos, zeros above
+// them; nxt is the row's word widx, loaded ahead for the next refill.
+// Within the row it yields the bits Stream::peek does for positions before
+// the last word's start (past the row, words read as the EOF fill).
+struct BitBuf {
+  const uint32_t* w;
+  int W, pos, nb, widx;
+  uint64_t buf;
+  uint32_t nxt;
+
+  __device__ __forceinline__ uint32_t word(int i) const {
+    return i < W ? __ldg(w + i) : 0xFFFFFFFFu;
+  }
+  __device__ __forceinline__ void start(const uint32_t* row, int words) {
+    w = row;
+    W = words;
+    pos = 0;
+    nb = 64;
+    buf = (uint64_t)word(0) | ((uint64_t)word(1) << 32);
+    widx = 2;
+    nxt = word(2);
+  }
+  // >= 33 valid bits from pos
+  __device__ __forceinline__ uint64_t win() {
+    if (nb < 33) {
+      buf |= (uint64_t)nxt << nb;
+      nb += 32;
+      nxt = word(++widx);
+    }
+    return buf;
+  }
+  __device__ __forceinline__ void skip(int k) {
+    buf >>= k;
+    nb -= k;
+    pos += k;
+  }
+  // The count of leading stream ones, exact below 32 (a unary count is
+  // only compared with LIMIT_ONES and LIMIT_ONES + 1).
+  __device__ __forceinline__ int ones() {
+    const uint32_t z = ~(uint32_t)win();
+    return z ? __ffs(z) - 1 : 32;
+  }
+};
+
+// Stream::peek at a position, the reader of the row's tail.
+struct PeekReader {
+  const Stream& st;
+  long long pos;
+
+  __device__ __forceinline__ uint64_t win() const { return st.peek(pos); }
+  __device__ __forceinline__ void skip(int k) { pos += k; }
+  __device__ __forceinline__ int ones() const {
+    return (int)trailing_ones(win());
+  }
+};
 
 struct Gamma {
-  long long value, consume;
+  long long value;
   bool broke;
 };
 
-// WavPack's Elias-gamma read: zero-run lengths and LIMIT_ONES escapes.
-__device__ __forceinline__ Gamma read_gamma(const Stream& s, long long pos) {
-  long long cbits = trailing_ones(s.peek(pos));
+// WavPack's Elias-gamma read (zero-run lengths and LIMIT_ONES escapes):
+// the ones count (at most 32 of them, 33 is the EOF break), the zero after
+// it, then count - 1 bits of value.
+template <class R>
+__device__ __forceinline__ Gamma read_gamma(R& rd) {
+  long long cbits = trailing_ones(rd.win());
   if (cbits > 33) cbits = 33;
   Gamma g;
   g.broke = cbits >= 33;
+  if (g.broke) return g;
+  rd.skip((int)cbits + 1);
   if (cbits < 2) {
     g.value = cbits;
-    g.consume = cbits + 1;
   } else {
-    long long data = bits_of(s.peek(pos + cbits + 1), cbits - 1);
-    g.value = data | (1LL << (cbits - 1 < 62 ? cbits - 1 : 62));
-    g.consume = 2 * cbits;
+    g.value = bits_of(rd.win(), cbits - 1) | (1LL << (cbits - 1));
+    rd.skip((int)cbits - 1);
   }
   return g;
 }
 
+// The median updates (WordsUtils.cs:433-475) with divisor 2^SH: the int64
+// form of the plain version, and its 32-bit form for int32 medians. With
+// m = q 2^SH + r (q = m >> SH, 0 <= r < 2^SH), (m + 2^SH) >> SH is
+// exactly q + 1 and (m + 2^SH - 2) >> SH is q + ((r + 2^SH - 2) >> SH);
+// q, and q + 1 times 5 or 2, fit int32, and the int64 sum truncated to
+// int32 (wrap32) is the sum in 32-bit unsigned arithmetic.
+template <int SH>
+__device__ __forceinline__ long long med_inc(long long m) {
+  return wrap32(m + ((m + (1LL << SH)) >> SH) * 5);
+}
+template <int SH>
+__device__ __forceinline__ long long med_dec(long long m) {
+  return wrap32(m - ((m + (1LL << SH) - 2) >> SH) * 2);
+}
+template <int SH>
+__device__ __forceinline__ int med_inc(int m) {
+  return (int)((unsigned)m + (unsigned)(((m >> SH) + 1) * 5));
+}
+template <int SH>
+__device__ __forceinline__ int med_dec(int m) {
+  const int q = (m >> SH) + (((m & ((1 << SH) - 1)) + (1 << SH) - 2) >> SH);
+  return (int)((unsigned)m - (unsigned)(q * 2));
+}
+
+// read_code for an int32 maxcode: maxcode = (m >> 4) of an int32 median
+// is below 2^27, so the code and its width fit int32 (read_code in
+// stream.cuh is the int64 form).
+__device__ __forceinline__ Code read_code(uint64_t win, int maxcode) {
+  const uint32_t lo = (uint32_t)win;
+  const int bitcount = maxcode > 0 ? 32 - __clz(maxcode) : 0;
+  const int n = bitcount - 1;  // the code's low bits; -1 for no code
+  const int extras = (int)(1u << bitcount) - maxcode - 1;
+  const int code = n > 0 ? (int)(lo & ((1u << n) - 1)) : 0;
+  const bool extra = n >= 0 && code >= extras;
+  const int bit = (int)(lo >> (n > 0 ? n : 0)) & 1;
+  return Code{extra ? (code << 1) - extras + bit : code,
+              n >= 0 ? n + extra : 0};
+}
+
+// A lane's decoder state; M is the medians' type (int on the register
+// path, long long on the peek path).
+template <typename M>
 struct Lane {
-  long long bitpos, zacc;
-  long long med[2][3];
+  long long zacc;
+  M med[2][3];
   // hybrid state, read only by the hybrid profile
   long long slow[2], acc[2], delta[2], err[2];
   bool h1, h0, done;
@@ -88,28 +216,28 @@ struct Tables {
   const int* exp2t;
 };
 
-// One get_words iteration for channel C of an active lane; returns the
-// residual (0 for a zero-run word or an EOF break) and, for WVC, the
-// narrowed interval (0 where the word carries no correction code).
+// One get_words iteration for channel C of an active lane, reading through
+// `rd`; returns the residual (0 for a zero-run word or an EOF break) and,
+// for WVC, the narrowed interval (0 where the word carries no correction
+// code).
 template <int C, bool MONO, bool HYBRID, bool BITRATE, bool BALANCE,
-          bool WVC>
-__device__ __forceinline__ int decode_word(Lane& s, const Stream& st,
+          bool WVC, typename M, class R>
+__device__ __forceinline__ int decode_word(Lane<M>& s, R& rd,
                                            const Tables& tb, int& mc,
                                            int& base) {
   // ---- zero-run branch (WordsUtils.cs:304-352) ----
-  if ((s.med[0][0] & ~1LL) == 0 && (s.med[1][0] & ~1LL) == 0 && !s.h1 &&
+  if ((s.med[0][0] & ~(M)1) == 0 && (s.med[1][0] & ~(M)1) == 0 && !s.h1 &&
       !s.h0) {
     bool emit_zero = false;
     if (s.zacc > 0) {
       s.zacc -= 1;
       emit_zero = s.zacc > 0;
     } else {
-      Gamma g = read_gamma(st, s.bitpos);
+      Gamma g = read_gamma(rd);
       if (g.broke) {
         s.done = true;
         return 0;
       }
-      s.bitpos += g.consume;
       if (g.value > 0) {
         s.zacc = g.value;
         for (int c = 0; c < 2; ++c)
@@ -125,34 +253,31 @@ __device__ __forceinline__ int decode_word(Lane& s, const Stream& st,
   }
 
   // ---- unary ones_count with holding carry (WordsUtils.cs:354-428) ----
+  // The common case without branches that differ lane to lane: with
+  // holding_zero set the count is 0 and nothing is read.
+  const int t_u = rd.ones();
   long long oc;
-  if (s.h0) {
-    oc = 0;
-    s.h0 = false;
-    s.h1 = false;
-  } else {
-    long long t_u = trailing_ones(st.peek(s.bitpos));
-    long long raw, consume;
-    if (t_u >= LIMIT_ONES + 1) {
+  if (!s.h0 && t_u >= LIMIT_ONES) {  // an EOF break or a LIMIT_ONES escape
+    if (t_u > LIMIT_ONES) {
       s.done = true;
       return 0;
     }
-    if (t_u == LIMIT_ONES) {
-      Gamma g = read_gamma(st, s.bitpos + 17);
-      if (g.broke) {
-        s.done = true;
-        return 0;
-      }
-      raw = g.value + LIMIT_ONES;
-      consume = 17 + g.consume;
-    } else {
-      raw = t_u;
-      consume = t_u + 1;
+    rd.skip(LIMIT_ONES + 1);
+    Gamma g = read_gamma(rd);
+    if (g.broke) {
+      s.done = true;
+      return 0;
     }
-    s.bitpos += consume;
+    const long long raw = g.value + LIMIT_ONES;
     oc = (raw >> 1) + (s.h1 ? 1 : 0);
     s.h1 = (raw & 1) != 0;
     s.h0 = !s.h1;
+  } else {
+    rd.skip(s.h0 ? 0 : t_u + 1);
+    oc = s.h0 ? 0 : (t_u >> 1) + (s.h1 ? 1 : 0);
+    const bool h1 = !s.h0 && (t_u & 1) != 0;
+    s.h0 = !s.h0 && !h1;
+    s.h1 = h1;
   }
 
   // ---- hybrid error limit (WordsUtils.cs:430-431) ----
@@ -160,37 +285,27 @@ __device__ __forceinline__ int decode_word(Lane& s, const Stream& st,
     update_error_limit<MONO, BITRATE, BALANCE>(s.slow, s.acc, s.delta, s.err,
                                                tb.exp2t);
 
-  // ---- median interval (WordsUtils.cs:433-475) ----
-  long long* m = s.med[C];
-  long long g0 = (m[0] >> 4) + 1, g1 = (m[1] >> 4) + 1, g2 = (m[2] >> 4) + 1;
-  long long low, width;
-  if (oc == 0) {
-    low = 0;
-    width = g0;
-    m[0] = wrap32(m[0] - ((m[0] + (DIV0 - 2)) >> 7) * 2);
-  } else {
-    m[0] = wrap32(m[0] + ((m[0] + DIV0) >> 7) * 5);
-    if (oc == 1) {
-      low = g0;
-      width = g1;
-      m[1] = wrap32(m[1] - ((m[1] + (DIV1 - 2)) >> 6) * 2);
-    } else {
-      m[1] = wrap32(m[1] + ((m[1] + DIV1) >> 6) * 5);
-      width = g2;
-      if (oc == 2) {
-        low = g0 + g1;
-        m[2] = wrap32(m[2] - ((m[2] + (DIV2 - 2)) >> 5) * 2);
-      } else {
-        low = g0 + g1 + (oc - 2) * g2;
-        m[2] = wrap32(m[2] + ((m[2] + DIV2) >> 5) * 5);
-      }
-    }
-  }
+  // ---- median interval (WordsUtils.cs:433-475), as selects: every
+  // candidate update is computed and the ones count picks ----
+  M* m = s.med[C];
+  const M g0 = (m[0] >> 4) + 1, g1 = (m[1] >> 4) + 1, g2 = (m[2] >> 4) + 1;
+  const M d0 = med_dec<7>(m[0]), i0 = med_inc<7>(m[0]);
+  const M d1 = med_dec<6>(m[1]), i1 = med_inc<6>(m[1]);
+  const M d2 = med_dec<5>(m[2]), i2 = med_inc<5>(m[2]);
+  const M width = oc == 0 ? g0 : oc == 1 ? g1 : g2;
+  const long long low =
+      oc == 0 ? 0
+              : oc == 1 ? (long long)g0
+                        : (long long)g0 + g1 + (oc - 2) * (long long)g2;
+  m[0] = oc == 0 ? d0 : i0;
+  m[1] = oc == 0 ? m[1] : oc == 1 ? d1 : i1;
+  m[2] = oc < 2 ? m[2] : oc == 2 ? d2 : i2;
 
   // ---- value: read_code (WordsUtils.cs:546-570), or the hybrid search
   // where the error limit is not 0, and the sign bit ----
-  uint64_t win = st.peek(s.bitpos);
-  long long mid, consume = 0;
+  const uint64_t win = rd.win();
+  long long mid;
+  int consume = 0;
   if (HYBRID && s.err[C] != 0) {
     // at most 32 steps, one stream bit each; the window holds 33 bits,
     // the last for the sign
@@ -212,13 +327,36 @@ __device__ __forceinline__ int decode_word(Lane& s, const Stream& st,
   } else {
     Code rc = read_code(win, width - 1);
     mid = low + rc.code;
-    consume = rc.consume;
+    consume = (int)rc.consume;
   }
-  bool sign = (win >> (consume < 62 ? consume : 62)) & 1;
-  s.bitpos += consume + 1;
+  const bool sign = (win >> consume) & 1;
+  rd.skip(consume + 1);
   s.ndec += 1;
   if (BITRATE) s.slow[C] = slow_decay(s.slow[C]) + mylog2(mid, tb.log2t);
   return (int)wrap32(sign ? ~mid : mid);
+}
+
+// A step's value of each channel; a stereo pair in one 8-byte store (the
+// outputs are fresh tensors, and a pair starts at an even index).
+template <bool MONO>
+__device__ __forceinline__ void store(int* dst, const int (&v)[2]) {
+  if (MONO)
+    dst[0] = v[0];
+  else
+    *reinterpret_cast<int2*>(dst) = make_int2(v[0], v[1]);
+}
+
+// One step of a lane: channel A's word, then (stereo) channel B's.
+template <bool MONO, bool HYBRID, bool BITRATE, bool BALANCE, bool WVC,
+          typename M, class R>
+__device__ __forceinline__ void decode_step(Lane<M>& s, R& rd,
+                                            const Tables& tb, int (&v)[2],
+                                            int (&mc)[2], int (&base)[2]) {
+  v[0] = decode_word<0, MONO, HYBRID, BITRATE, BALANCE, WVC>(s, rd, tb,
+                                                             mc[0], base[0]);
+  if (!MONO && !s.done)
+    v[1] = decode_word<1, MONO, HYBRID, BITRATE, BALANCE, WVC>(
+        s, rd, tb, mc[1], base[1]);
 }
 
 template <bool MONO, bool HYBRID, bool BITRATE, bool BALANCE, bool WVC>
@@ -241,46 +379,85 @@ entropy_kernel(const uint32_t* __restrict__ words,
     __syncthreads();
   }
   const Tables tb{tab, tab + TABLE};
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= L) return;
-  Stream st(words + (size_t)lane * W, W);
-  Lane s;
-  s.bitpos = 0;
-  s.zacc = 0;
-  s.h1 = s.h0 = s.done = false;
-  s.ndec = 0;
+  const uint32_t* row = words + (size_t)lane * W;
+  const Stream st(row, W);
+
+  // the peek path's state (long long medians), and the register path's
+  Lane<long long> p;
+  p.zacc = 0;
+  p.h1 = p.h0 = p.done = false;
+  p.ndec = 0;
+  bool wide = false;
   for (int c = 0; c < 2; ++c) {
-    for (int i = 0; i < 3; ++i) s.med[c][i] = med0[lane * 6 + c * 3 + i];
-    s.slow[c] = HYBRID ? slow0[lane * 2 + c] : 0;
-    s.acc[c] = HYBRID ? acc0[lane * 2 + c] : 0;
-    s.delta[c] = HYBRID ? delta0[lane * 2 + c] : 0;
-    s.err[c] = 0;
-  }
-  int ns = nwords_lane[lane] / C;
-  const size_t row = (size_t)L * C;
-  size_t off = (size_t)lane * C;
-  for (int t = 0; t < T; ++t, off += row) {
-    int a = 0, b = 0, mca = 0, mcb = 0, ba = 0, bb = 0;
-    if (t < ns && !s.done) {
-      a = decode_word<0, MONO, HYBRID, BITRATE, BALANCE, WVC>(s, st, tb, mca,
-                                                              ba);
-      if (!MONO && !s.done)
-        b = decode_word<1, MONO, HYBRID, BITRATE, BALANCE, WVC>(s, st, tb,
-                                                                mcb, bb);
+    for (int i = 0; i < 3; ++i) {
+      p.med[c][i] = med0[lane * 6 + c * 3 + i];
+      wide |= p.med[c][i] != wrap32(p.med[c][i]);
     }
-    res[off] = a;
-    if (!MONO) res[off + 1] = b;
-    if (WVC) {
-      mc_out[off] = mca;
-      base_out[off] = ba;
-      if (!MONO) {
-        mc_out[off + 1] = mcb;
-        base_out[off + 1] = bb;
+    p.slow[c] = HYBRID ? slow0[lane * 2 + c] : 0;
+    p.acc[c] = HYBRID ? acc0[lane * 2 + c] : 0;
+    p.delta[c] = HYBRID ? delta0[lane * 2 + c] : 0;
+    p.err[c] = 0;
+  }
+  Lane<int> f;
+  f.zacc = 0;
+  f.h1 = f.h0 = f.done = false;
+  f.ndec = 0;
+  for (int c = 0; c < 2; ++c) {
+    for (int i = 0; i < 3; ++i) f.med[c][i] = (int)p.med[c][i];
+    f.slow[c] = p.slow[c];
+    f.acc[c] = p.acc[c];
+    f.delta[c] = p.delta[c];
+    f.err[c] = 0;
+  }
+  BitBuf bb;
+  bb.start(row, W);
+  PeekReader pr{st, 0};
+  // the register path runs while a step starts before this position
+  const int fast_end = (W - 1) * 32 - TAIL_BITS;
+  bool fast = !wide;
+  bool done = false;
+
+  const int ns = nwords_lane[lane] / C;
+  const size_t step = (size_t)L * C;
+  size_t off = (size_t)lane * C;
+  for (int t = 0; t < T; ++t, off += step) {
+    int v[2] = {0, 0}, mc[2] = {0, 0}, base[2] = {0, 0};
+    if (t < ns && !done) {
+      if (fast && bb.pos >= fast_end) {  // hand the lane to the peek path
+        fast = false;
+        p.zacc = f.zacc;
+        for (int c = 0; c < 2; ++c) {
+          for (int i = 0; i < 3; ++i) p.med[c][i] = f.med[c][i];
+          p.slow[c] = f.slow[c];
+          p.acc[c] = f.acc[c];
+          p.delta[c] = f.delta[c];
+          p.err[c] = f.err[c];
+        }
+        p.h1 = f.h1;
+        p.h0 = f.h0;
+        p.ndec = f.ndec;
+        pr.pos = bb.pos;
+      }
+      if (fast) {
+        decode_step<MONO, HYBRID, BITRATE, BALANCE, WVC>(f, bb, tb, v, mc,
+                                                         base);
+        done = f.done;
+      } else {
+        decode_step<MONO, HYBRID, BITRATE, BALANCE, WVC>(p, pr, tb, v, mc,
+                                                         base);
+        done = p.done;
       }
     }
+    store<MONO>(res + off, v);
+    if (WVC) {
+      store<MONO>(mc_out + off, mc);
+      store<MONO>(base_out + off, base);
+    }
   }
-  broke[lane] = s.done ? 1 : 0;
-  ndec[lane] = s.ndec;
+  broke[lane] = done ? 1 : 0;
+  ndec[lane] = fast ? f.ndec : p.ndec;
 }
 
 struct Args {

@@ -31,16 +31,19 @@ def fused_decode(words, nwords_lane, nsamples, med, slow, acc, delta,
                  mute_limit, shift, bytes_stored, float_shift_eff, int32_zod,
                  *, mono: bool, hybrid: bool, hybrid_bitrate: bool,
                  hybrid_balance: bool, is_float: bool, int32_expand: bool,
-                 nsteps: int):
+                 nsteps: int, static_terms: tuple | None = None,
+                 chain_segments: tuple | None = None):
     """Decode one bucket. Returns (out (T, L, C) int32, crc (L,) int32,
-    mute (L,) bool)."""
+    mute (L,) bool). `static_terms` / `chain_segments` are the bucket's
+    (staging.Bucket): which lanes share a term chain."""
     residuals, broke, _ndec = entropy_decode_any(
         words, nwords_lane, med, slow, acc, delta, mono=mono, nsteps=nsteps,
         hybrid=hybrid, hybrid_bitrate=hybrid_bitrate,
         hybrid_balance=hybrid_balance)
     out, crc, mute = decorr_post_any(
         residuals, terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
-        nsamples, joint, mute_limit, broke, mono=mono)
+        nsamples, joint, mute_limit, broke, mono=mono,
+        static_terms=static_terms, chain_segments=chain_segments)
     out = fixup(out, shift, bytes_stored, float_shift_eff, int32_zod,
                 is_float=is_float, int32_expand=int32_expand, hybrid=hybrid)
     return out, crc, mute
@@ -53,7 +56,8 @@ def fused_decode_wvx(words, nwords_lane, nsamples, med, slow, acc, delta,
                      sent_bits, max_width, false_stereo, *, mono: bool,
                      hybrid: bool, hybrid_bitrate: bool,
                      hybrid_balance: bool, has_false_stereo: bool,
-                     nsteps: int):
+                     nsteps: int, static_terms: tuple | None = None,
+                     chain_segments: tuple | None = None):
     """Decode one INT32+wvx bucket: the wvx low-bit injection, with its
     own re-expansion and crc_x, runs between joint/CRC and the final
     shift. Returns (out, crc, mute, crc_x (L,) int32)."""
@@ -63,7 +67,8 @@ def fused_decode_wvx(words, nwords_lane, nsamples, med, slow, acc, delta,
         hybrid_balance=hybrid_balance)
     out, crc, mute = decorr_post_any(
         residuals, terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
-        nsamples, joint, mute_limit, broke, mono=mono)
+        nsamples, joint, mute_limit, broke, mono=mono,
+        static_terms=static_terms, chain_segments=chain_segments)
     out, crc_x = wvx_inject_any(
         out, nsamples, wvx_words, wvx_start_bit, wvx_start_bc, sent_bits,
         max_width, int32_zod,
@@ -78,7 +83,9 @@ def fused_decode_wvc(words, nwords_lane, nsamples, med, slow, acc, delta,
                      joint, mute_limit, shift, bytes_stored, float_shift_eff,
                      int32_zod, wvc_words, *, mono: bool,
                      hybrid_bitrate: bool, hybrid_balance: bool,
-                     is_float: bool, int32_expand: bool, nsteps: int):
+                     is_float: bool, int32_expand: bool, nsteps: int,
+                     static_terms: tuple | None = None,
+                     chain_segments: tuple | None = None):
     """Decode one hybrid bucket with its correction streams, exactly
     (libwavpack's hybrid-lossless semantics; the reference never reads
     the correction stream, WavPackUtils.cs:31).
@@ -97,7 +104,8 @@ def fused_decode_wvc(words, nwords_lane, nsamples, med, slow, acc, delta,
     corr = wvc_corrections_any(wvc_words, mc, base, residuals)
     out, crc, crc_wvc, mute = decorr_post_wvc_any(
         residuals, corr, terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
-        nsamples, joint, mute_limit, broke, mono=mono)
+        nsamples, joint, mute_limit, broke, mono=mono,
+        static_terms=static_terms, chain_segments=chain_segments)
     out = fixup(out, shift, bytes_stored, float_shift_eff, int32_zod,
                 is_float=is_float, int32_expand=int32_expand, hybrid=True)
     return out, crc, mute, crc_wvc

@@ -72,7 +72,8 @@ def decode_tensors(b: Bucket, t: dict[str, torch.Tensor]):
     prof = b.profile
     base = {k: t[k] for k in DEVICE_FIELDS}
     hyb = dict(mono=prof.mono, hybrid_bitrate=prof.hybrid_bitrate,
-               hybrid_balance=prof.hybrid_balance, nsteps=prof.nsteps)
+               hybrid_balance=prof.hybrid_balance, nsteps=prof.nsteps,
+               static_terms=b.static_terms, chain_segments=b.chain_segments)
     if prof.has_wvc:
         out, crc, mute, crc_wvc = fused_decode_wvc(
             **base, wvc_words=t["wvc_words"], is_float=prof.is_float,

@@ -6,8 +6,11 @@ wvc, sample capacity); everything else (terms, medians, shifts, joint
 flag, ...) is per-lane data. The arrays are numpy and are wvpk's Bucket
 arrays under the same names, so `bucket_tensors` takes a bucket from
 either package. The wvx and wvc streams stage as their own (L, W) word
-arrays. Not carried over: the TPU compile specialisations (lane order by
-term chain, `chain_segments`, `static_terms`).
+arrays. As in wvpk, a bucket whose lanes mix term chains is sorted so
+that each frequent chain's lanes are contiguous (`_order_by_chain`), and
+`chain_segments` names those lane runs; `static_terms` is a uniform
+bucket's chain. The decorrelation kernel runs an instantiation compiled
+for the chain on each such run (ops/decorr_cuda.py::CHAINS).
 """
 
 from __future__ import annotations
@@ -24,6 +27,14 @@ from ..ops.bitio import pack_streams
 from ..tables import i32
 from .fused import DEVICE_FIELDS, NARROW, TERM_FIELDS, WVC_FIELDS, \
     WVX_FIELDS, build_blob, restore_terms, to_device, unpack_blob
+
+
+# mixed-chain buckets (wvpk/config.py:47-50, decorr_segment_min and
+# decorr_segment_classes): a term chain earns its own decorrelation segment
+# when it fills at least _SEGMENT_MIN lanes; at most _SEGMENT_CLASSES chains
+# do, the rest share one generic tail segment
+_SEGMENT_MIN = 64
+_SEGMENT_CLASSES = 8
 
 
 def _pow2_at_least(n: int, lo: int | None = None) -> int:
@@ -104,6 +115,25 @@ class Bucket:
     # header CRCs, which cover the exact samples
     wvc_words: np.ndarray | None = None
     wvc_crc: np.ndarray | None = None
+    # (chain, start, stop, num_terms_max) lane runs of a mixed-chain
+    # bucket, chain None for the generic tail; None when the bucket is
+    # uniform (static_terms covers it) or no chain fills a segment
+    chain_segments: tuple | None = None
+
+    @property
+    def static_terms(self) -> tuple | None:
+        """The bucket's uniform decorrelation term chain, or None when
+        its lanes differ or have no terms."""
+        nt = np.asarray(self.num_terms)
+        if nt.size == 0 or not (nt == nt[0]).all():
+            return None
+        n = int(nt[0])
+        if n == 0:
+            return None
+        t = np.asarray(self.terms)[:, :n]
+        if not (t == t[0]).all():
+            return None
+        return tuple(int(x) for x in t[0])
 
 
 def _fixup_params(st: BlockState) -> tuple[int, tuple[int, int, int]]:
@@ -146,8 +176,55 @@ def _float_shift(st: BlockState) -> int:
     return max(-32, min(32, sh))
 
 
+def _chain_of(st: BlockState) -> tuple:
+    return tuple(st.terms[:st.num_terms])
+
+
+def _order_by_chain(states: list[BlockState], indices: list[int],
+                    mono: bool):
+    """Sort a bucket's lanes so that the lanes of each frequent chain are
+    contiguous (wvpk/engine/staging.py::_order_by_chain): chains of at
+    least _SEGMENT_MIN lanes, the _SEGMENT_CLASSES most frequent first,
+    each get a segment; the other lanes form one generic
+    tail segment. Mono chains with cross-channel terms get none. Lane
+    order inside a bucket is free: results map back through
+    Bucket.states/indices. Returns (states, indices, chain_segments)."""
+    first = states[0]
+    if all(st.num_terms == first.num_terms and st.terms == first.terms
+           for st in states):     # a uniform bucket, without a tuple a lane
+        return states, indices, None
+    chains = [_chain_of(st) for st in states]
+    counts: dict[tuple, int] = {}
+    for c in chains:
+        counts[c] = counts.get(c, 0) + 1
+    if len(counts) == 1:
+        return states, indices, None
+    specializable = sorted(
+        (c for c, n in counts.items()
+         if n >= _SEGMENT_MIN and len(c) > 0
+         and not (mono and any(t < 0 for t in c))),
+        key=lambda c: -counts[c])[:_SEGMENT_CLASSES]
+    if not specializable:
+        return states, indices, None
+    rank = {c: k for k, c in enumerate(specializable)}
+    order = sorted(range(len(states)),
+                   key=lambda i: rank.get(chains[i], len(rank)))
+    states = [states[i] for i in order]
+    indices = [indices[i] for i in order]
+    segments, pos = [], 0
+    for c in specializable:
+        segments.append((c, pos, pos + counts[c], len(c)))
+        pos += counts[c]
+    if pos < len(states):
+        tail_ntm = max(len(chains[i]) for i in order[pos:])
+        segments.append((None, pos, len(states), max(tail_ntm, 1)))
+    return states, indices, tuple(segments)
+
+
 def stage(states: list[BlockState], indices: list[int]) -> Bucket:
     prof = profile_of(states[0])
+    states, indices, chain_segments = _order_by_chain(states, indices,
+                                                      prof.mono)
     words, _ = pack_streams([st.wvbits or b"" for st in states])
     chans = 1 if prof.mono else 2
     nsamples = np.asarray([st.header.block_samples for st in states],
@@ -184,6 +261,7 @@ def stage(states: list[BlockState], indices: list[int]) -> Bucket:
                              np.int32),
         max_width=np.asarray([st.int32_max_width for st in states],
                              np.int32),
+        chain_segments=chain_segments,
     )
     if prof.has_wvc:
         b.wvc_words, _ = pack_streams([st.wvcbits or b"" for st in states])

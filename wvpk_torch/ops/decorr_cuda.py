@@ -1,9 +1,20 @@
-"""Wrapper of the CUDA decorrelation kernel (csrc/decorr.cu).
+"""Wrapper of the CUDA decorrelation kernels (csrc/decorr.cu).
 
-The kernel replaces wvpk/ops/decorr_pallas.py::_decorr_kernel with
-fold_post; its plain version is ops/decorr.py::decorr_post, with the same
-arguments and results. `decorr_post_wvc_cuda` is its wvc arm, whose plain
-version is ops/decorr.py::decorr_post_wvc.
+The kernels replace wvpk/ops/decorr_pallas.py::_decorr_kernel with
+fold_post; their plain version is ops/decorr.py::decorr_post, with the
+same arguments and results. `decorr_post_wvc_cuda` is their wvc arm, whose
+plain version is ops/decorr.py::decorr_post_wvc.
+
+csrc/decorr.cu compiles one kernel for each chain of CHAINS (its terms
+fixed, so its weights and history rings live in registers) and a generic
+kernel that reads each lane's chain at run time. A call splits the
+bucket's lanes into runs by chain, as wvpk's decorr_post_any does with
+`static_terms` and `chain_segments`, and launches each run's kernel on its
+lane range: the first run on the caller's stream, the others on side
+streams forked from it and joined back into it, so that the runs of a
+mixed bucket share the card. The lanes of a run
+named by `static_terms` or `chain_segments` must carry that chain (staging
+guarantees it).
 """
 
 from __future__ import annotations
@@ -17,14 +28,89 @@ from .. import _build, consts
 I32 = torch.int32
 _INT32_MAX = (1 << 31) - 1
 
+# The chains csrc/decorr.cu compiles, by id: its WVPK_CHAIN lines name the
+# same (id, mono, terms) in the same order, and a test holds them equal.
+# The bench chain and the encoder presets (encode.PRESETS); mono chains
+# are the stereo ones without their cross-channel terms, as the encoder
+# writes them.
+CHAINS = (
+    ("bench", False, (18, 17, 2)),
+    ("fast", False, (17, 17)),
+    ("default", False, (18, 18, 2, 17, 3)),
+    ("high", False, (18, 18, 18, -2, 2, 3, 5, -1, 17, 4)),
+    ("bench_mono", True, (18, 17, 2)),
+    ("fast_mono", True, (17, 17)),
+    ("default_mono", True, (18, 18, 2, 17, 3)),
+    ("high_mono", True, (18, 18, 18, 2, 3, 5, 17, 4)),
+)
+GENERIC = -1        # the id of the generic kernel
+_IDS = {(mono, terms): k for k, (_name, mono, terms) in enumerate(CHAINS)}
+# the kernels' names, as the launch counters key them
+INSTANCES = tuple(name for name, _m, _t in CHAINS) + ("generic",
+                                                     "generic_mono")
+
+
+def instance_name(chain_id: int, mono: bool) -> str:
+    if chain_id == GENERIC:
+        return "generic_mono" if mono else "generic"
+    return CHAINS[chain_id][0]
+
+
+def lane_runs(L: int, mono: bool, static_terms=None, chain_segments=None
+              ) -> list[tuple[int, int, int]]:
+    """The (chain id, start, stop) runs of a bucket's L lanes: the whole
+    bucket when `static_terms` names its chain (wvpk's rule: ignored when
+    empty or, on a mono bucket, with cross-channel terms), the runs of
+    `chain_segments` ((chain or None, start, stop, num_terms_max), ...)
+    otherwise, else one generic run. A chain outside CHAINS runs the
+    generic kernel."""
+    if static_terms is not None and (
+            len(static_terms) == 0
+            or (mono and any(t < 0 for t in static_terms))):
+        static_terms = None
+    if static_terms is not None:
+        runs = [(tuple(static_terms), 0, L)]
+    elif chain_segments:
+        runs = [(None if c is None else tuple(c), s, e)
+                for c, s, e, *_ in chain_segments]
+    else:
+        runs = [(None, 0, L)]
+    merged: list[tuple[int, int, int]] = []
+    pos = 0
+    for c, s, e in runs:
+        if s != pos or e < s:
+            raise ValueError(f"decorr kernel: lane runs {runs} do not "
+                             f"tile {L} lanes")
+        pos = e
+        cid = GENERIC if c is None else _IDS.get((mono, c), GENERIC)
+        if merged and merged[-1][0] == cid:     # one run per kernel
+            merged[-1] = (cid, merged[-1][1], e)
+        elif e > s:
+            merged.append((cid, s, e))
+    if pos != L:
+        raise ValueError(f"decorr kernel: lane runs {runs} do not tile "
+                         f"{L} lanes")
+    return merged
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decorr")
     fn = lib.wvpk_decorr_post
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     return lib
+
+
+_side: dict[torch.device, list] = {}
+
+
+def _side_streams(dev: torch.device, n: int) -> list:
+    """`n` side streams of `dev`, made at first use and kept."""
+    have = _side.setdefault(dev, [])
+    while len(have) < n:
+        have.append(torch.cuda.Stream(dev))
+    return have[:n]
 
 
 def _as_i32(name, t, shape, device, kernel="decorr"):
@@ -40,7 +126,7 @@ def _as_i32(name, t, shape, device, kernel="decorr"):
 
 
 def _launch(residuals, corr, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
-            num_terms, nsamples, joint, mute_limit, *, mono: bool):
+            num_terms, nsamples, joint, mute_limit, *, mono: bool, runs):
     if not residuals.is_cuda:
         raise ValueError("decorr_post_cuda takes CUDA tensors")
     T, L, C = residuals.shape
@@ -59,6 +145,12 @@ def _launch(residuals, corr, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
             f"decorr kernel: corr must be contiguous int32 "
             f"{tuple(residuals.shape)} on {dev}, got {corr.dtype} "
             f"{tuple(corr.shape)} on {corr.device}")
+    # the kernels copy a lane's C values of a step with one cp.async of
+    # 4 C bytes, which must be aligned to its size (a fresh tensor is)
+    if residuals.data_ptr() % (4 * C):
+        residuals = residuals.clone()
+    if wvc and corr.data_ptr() % (4 * C):
+        corr = corr.clone()
     nt = consts.MAX_NTERMS
     args = [_as_i32("terms", terms, (L, nt), dev),
             _as_i32("deltas", deltas, (L, nt), dev),
@@ -76,36 +168,63 @@ def _launch(residuals, corr, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
     crc = torch.empty(L, dtype=I32, device=dev)
     crc_wvc = torch.empty(L, dtype=I32, device=dev) if wvc else None
     first_bad = torch.empty(L, dtype=I32, device=dev)
-    err = _lib().wvpk_decorr_post(
-        residuals.data_ptr(), corr.data_ptr() if wvc else None,
-        *(a.data_ptr() for a in args), out.data_ptr(), crc.data_ptr(),
-        crc_wvc.data_ptr() if wvc else None, first_bad.data_ptr(), L, T,
-        int(mono), int(wvc), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"decorr kernel launch failed: CUDA error {err}")
+    ptrs = (residuals.data_ptr(), corr.data_ptr() if wvc else None,
+            *(a.data_ptr() for a in args), out.data_ptr(), crc.data_ptr(),
+            crc_wvc.data_ptr() if wvc else None, first_bad.data_ptr(), L, T,
+            int(mono), int(wvc))
+    # fork every side stream before the first launch, or a side stream
+    # would wait for the runs launched before it
+    main = torch.cuda.current_stream(dev)
+    side = _side_streams(dev, len(runs) - 1)
+    for stream in side:
+        stream.wait_stream(main)
+    for stream, (chain, lo, hi) in zip([main] + side, runs):
+        err = _lib().wvpk_decorr_post(*ptrs, chain, lo, hi,
+                                      stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"decorr kernel launch failed: CUDA error {err}")
+    for stream in side:
+        main.wait_stream(stream)
     return out, crc, crc_wvc, first_bad
 
 
+def _count(fn, runs, mono):
+    """One launch of `fn`, and one of each kernel instantiation it ran."""
+    fn.launches += 1
+    for chain_id, _s, _e in runs:
+        fn.chain_launches[instance_name(chain_id, mono)] += 1
+
+
 def decorr_post_cuda(residuals, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
-                     num_terms, nsamples, joint, mute_limit, *, mono: bool):
-    """Same contract as ops/decorr.py::decorr_post, on CUDA tensors."""
+                     num_terms, nsamples, joint, mute_limit, *, mono: bool,
+                     static_terms=None, chain_segments=None):
+    """Same contract as ops/decorr.py::decorr_post, on CUDA tensors;
+    `static_terms` / `chain_segments` choose the kernels (lane_runs)."""
+    runs = lane_runs(residuals.shape[1], mono, static_terms, chain_segments)
     out, crc, _, first_bad = _launch(
         residuals, None, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
-        num_terms, nsamples, joint, mute_limit, mono=mono)
-    decorr_post_cuda.launches += 1
+        num_terms, nsamples, joint, mute_limit, mono=mono, runs=runs)
+    _count(decorr_post_cuda, runs, mono)
     return out, crc, first_bad
 
 
 def decorr_post_wvc_cuda(residuals, corr, terms, deltas, w0_a, w0_b,
                          hist0_a, hist0_b, num_terms, nsamples, joint,
-                         mute_limit, *, mono: bool):
+                         mute_limit, *, mono: bool, static_terms=None,
+                         chain_segments=None):
     """Same contract as ops/decorr.py::decorr_post_wvc, on CUDA
-    tensors."""
+    tensors; `static_terms` / `chain_segments` as decorr_post_cuda's."""
+    runs = lane_runs(residuals.shape[1], mono, static_terms, chain_segments)
     out = _launch(residuals, corr, terms, deltas, w0_a, w0_b, hist0_a,
-                  hist0_b, num_terms, nsamples, joint, mute_limit, mono=mono)
-    decorr_post_wvc_cuda.launches += 1
+                  hist0_b, num_terms, nsamples, joint, mute_limit, mono=mono,
+                  runs=runs)
+    _count(decorr_post_wvc_cuda, runs, mono)
     return out
 
 
-decorr_post_cuda.launches = 0
-decorr_post_wvc_cuda.launches = 0
+# launches of each wrapper, and of each kernel instantiation (INSTANCES)
+# in them
+for _fn in (decorr_post_cuda, decorr_post_wvc_cuda):
+    _fn.launches = 0
+    _fn.chain_launches = dict.fromkeys(INSTANCES, 0)

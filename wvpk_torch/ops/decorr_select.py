@@ -2,10 +2,12 @@
 wvpk/ops/decorr_select.py::decorr_post_any).
 
 CPU tensors take the plain PyTorch versions (decorr.py), CUDA tensors the
-kernel (decorr_cuda.py). There is no option and no fallback between them.
-The TPU compile specialisations of the JAX version (`static_terms`,
-`chain_segments`) have no counterpart: the kernel takes each lane's term
-chain at run time.
+kernels (decorr_cuda.py). There is no option and no fallback between them.
+As in the JAX version, `static_terms` (a uniform bucket's chain) and
+`chain_segments` (the lane runs of a mixed-chain bucket, from
+engine/staging.py) choose the kernel instantiation compiled for each
+run's chain; the plain versions compute the same function and ignore
+them.
 """
 
 from __future__ import annotations
@@ -15,39 +17,50 @@ from .decorr_cuda import decorr_post_cuda, decorr_post_wvc_cuda
 from .post import mask_muted
 
 
-def _pick(t, cuda_fn, plain_fn):
+def _on_cuda(t) -> bool:
     if t.is_cuda:
-        return cuda_fn
+        return True
     if t.device.type == "cpu":
-        return plain_fn
+        return False
     raise ValueError(f"no decorrelation for device {t.device}")
 
 
 def decorr_post_any(residuals, terms, deltas, w0_a, w0_b, hist0_a,
                     hist0_b, num_terms, nsamples, joint, mute_limit,
-                    broke, *, mono: bool):
+                    broke, *, mono: bool, static_terms: tuple | None = None,
+                    chain_segments: tuple | None = None):
     """Decorrelation + joint-stereo undo + mute check + CRC in one step.
 
     Returns (out, crc, mute) with joint_mute_crc's exact contract.
     """
-    fn = _pick(residuals, decorr_post_cuda, decorr_post)
-    out, crc, first_bad = fn(residuals, terms, deltas, w0_a, w0_b, hist0_a,
-                             hist0_b, num_terms, nsamples, joint,
-                             mute_limit, mono=mono)
+    args = (residuals, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
+            num_terms, nsamples, joint, mute_limit)
+    if _on_cuda(residuals):
+        out, crc, first_bad = decorr_post_cuda(
+            *args, mono=mono, static_terms=static_terms,
+            chain_segments=chain_segments)
+    else:
+        out, crc, first_bad = decorr_post(*args, mono=mono)
     out, mute = mask_muted(out, nsamples, broke, first_bad)
     return out, crc, mute
 
 
 def decorr_post_wvc_any(residuals, corr, terms, deltas, w0_a, w0_b,
                         hist0_a, hist0_b, num_terms, nsamples, joint,
-                        mute_limit, broke, *, mono: bool):
+                        mute_limit, broke, *, mono: bool,
+                        static_terms: tuple | None = None,
+                        chain_segments: tuple | None = None):
     """The hybrid-lossless variant: the corrections `corr` add after the
     chain. Returns (out, crc, crc_wvc, mute): the exact samples masked for
     mute, the lossy samples' CRC (wv header), the exact samples' CRC (wvc
     header) and the mute flag of the exact samples."""
-    fn = _pick(residuals, decorr_post_wvc_cuda, decorr_post_wvc)
-    out, crc, crc_wvc, first_bad = fn(
-        residuals, corr, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
-        num_terms, nsamples, joint, mute_limit, mono=mono)
+    args = (residuals, corr, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
+            num_terms, nsamples, joint, mute_limit)
+    if _on_cuda(residuals):
+        out, crc, crc_wvc, first_bad = decorr_post_wvc_cuda(
+            *args, mono=mono, static_terms=static_terms,
+            chain_segments=chain_segments)
+    else:
+        out, crc, crc_wvc, first_bad = decorr_post_wvc(*args, mono=mono)
     out, mute = mask_muted(out, nsamples, broke, first_bad)
     return out, crc, crc_wvc, mute

@@ -2,7 +2,8 @@
 
 The kernel replaces wvpk/ops/entropy_pallas.py::_entropy_kernel, lossless
 and hybrid profiles; its plain version is ops/entropy.py::entropy_decode,
-with the same arguments and results. `entropy_decode_wvc_cuda` is the
+with the same arguments and results. The kernel keeps bit positions in
+32 bits, so a lane's row holds fewer than 2^26 words. `entropy_decode_wvc_cuda` is the
 hybrid profile with the wvc outputs (entropy_decode(..., wvc=True)).
 """
 
@@ -49,6 +50,9 @@ def _launch(words, nwords_lane, med0, slow0, acc0, delta0, *, mono, nsteps,
     L, W = words.shape
     if L == 0 or W < 2:
         raise ValueError(f"entropy kernel: bad words shape {(L, W)}")
+    if W * 32 >= 1 << 31:
+        raise ValueError(f"entropy kernel: {W} words a lane: bit positions "
+                         "must fit int32")
     dev = words.device
     _check("words", words, torch.int32, (L, W), dev)
     _check("nwords_lane", nwords_lane, torch.int32, (L,), dev)

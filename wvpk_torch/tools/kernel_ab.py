@@ -1,0 +1,299 @@
+#!/usr/bin/env python3
+"""Same-card comparisons of wvpk_torch on one NVIDIA GPU.
+
+    python3 wvpk_torch/tools/kernel_ab.py OLD_ROOT NEW_ROOT [--reps 5]
+        [--calls 5]
+    python3 wvpk_torch/tools/kernel_ab.py --runs ROOT [--reps 5]
+
+Two checkouts, in turns old, new, new, old. Each turn is a process of its
+own with that root's `wvpk_torch` and `chip_smoke.py` first on the path
+(the packages share a name), so each side builds its own kernels (into
+ROOT/build/) and its own corpus with its own code. A turn takes the
+lossless bench corpus (chip_smoke.make_corpus: 192 files, 8,448 blocks)
+and measures:
+  - the entropy and decorrelation kernels at its largest bucket (8,256
+    lanes): `--reps` back-to-back launches timed with CUDA events, and a
+    digest of each kernel's outputs, which must agree across the turns
+    (the decorrelation kernel gets the bucket's `static_terms` where the
+    root's wrapper takes it);
+  - group_blocks alone, `--calls` times before any CUDA work (ms);
+  - decode_states end to end: one warm-up and `--calls` timed calls (host
+    clock, closed by a synchronize; Msamples/s), each call's output
+    released before the next; then `--calls` runs of the root's
+    chip_smoke.stage_breakdown (ms per stage).
+Prints one JSON line per turn, then a summary line.
+
+`--runs` times how a mixed-chain bucket's lane runs share the card, on
+ROOT's decorrelation kernels, at three buckets of chip_smoke.py's corpora:
+the hybrid corpus' largest (5,698 lanes, two chains), the wvc corpus'
+(8,096 lanes, two chains, the wvc arm) and the mixed-chain corpus' (430
+lanes, five runs). Each is timed two ways, in turns wrapper, sequence,
+sequence, wrapper: the wrapper's call (each run's kernel launched on a
+stream of its own, forked from the current stream and joined back into
+it) and one call a run, in sequence on the current stream. Both must
+give the same outputs.
+
+Needs one CUDA device; imports no jax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import inspect
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _timed(fn, reps: int) -> float:
+    """Mean device time of `fn` over `reps` back-to-back calls (ms)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _import_root(root: str):
+    """`root`'s chip_smoke module, with its wvpk_torch first on the path."""
+    sys.path.insert(0, os.path.abspath(root))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def measure(root: str, reps: int, calls: int) -> dict:
+    """One turn: `root`'s main-path kernels and decode_states on the
+    lossless corpus."""
+    cs = _import_root(root)
+    import torch
+
+    from wvpk_torch.engine import decode_states
+    from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+    from wvpk_torch.ops.decorr_cuda import decorr_post_cuda
+    from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda
+
+    dev = torch.device("cuda")
+    files, pcms = cs.make_corpus()
+    states, _ = cs.parse_corpus(files, cs.N_FILES)
+    frames = cs._frames(pcms, cs.N_FILES)
+    staging = []            # group_blocks alone, before any CUDA work
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        group_blocks(states)
+        staging.append(1000 * (time.perf_counter() - t0))
+    b = max(group_blocks(states), key=lambda x: len(x.states))
+    t = bucket_tensors(b, dev)
+    prof = b.profile
+    eargs = (t["words"], t["nwords_lane"], t["med"], t["slow"], t["acc"],
+             t["delta"])
+    ekw = dict(mono=prof.mono, nsteps=prof.nsteps, hybrid=False)
+    res = entropy_decode_cuda(*eargs, **ekw)
+    dargs = (res[0], t["terms"], t["deltas16"], t["wa"], t["wb"],
+             t["hist_a"], t["hist_b"], t["num_terms"], t["nsamples"],
+             t["joint"], t["mute_limit"])
+    dkw = dict(mono=prof.mono)
+    if "static_terms" in inspect.signature(decorr_post_cuda).parameters:
+        terms = b.terms[0, :int(b.num_terms[0])]
+        dkw["static_terms"] = tuple(int(x) for x in terms)
+    dec = decorr_post_cuda(*dargs, **dkw)
+    kernels = (lambda: entropy_decode_cuda(*eargs, **ekw),
+               lambda: decorr_post_cuda(*dargs, **dkw))
+    for fn in kernels:      # a round untimed: the card's clocks come up
+        _timed(fn, reps)
+    turn = {"root": root, "lanes": len(b.states),
+            "steps": prof.nsamples_cap,
+            "entropy_ms": _timed(kernels[0], reps),
+            "decorr_ms": _timed(kernels[1], reps),
+            "decorr_kwargs": sorted(dkw), "entropy_digest": _digest(res),
+            "decorr_digest": _digest(dec)}
+    del t, res, dec, dargs, eargs, kernels
+
+    rates, results = [], None
+    for rep in range(calls + 1):
+        results = None
+        t0 = time.perf_counter()
+        results = decode_states(states, dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rep:
+            rates.append(frames / dt / 1e6)
+    bad = sum(r.crc_error or r.mute_error for r in results)
+    h = hashlib.sha256()
+    for r in results:
+        h.update(r.samples.tobytes())
+    results = None
+    stages = [{k: 1000 * v for k, v in cs.stage_breakdown(states, dev).items()}
+              for _ in range(calls)]
+    turn.update(staging_ms=staging, msamples_per_s=rates, bad_blocks=bad,
+                decode_digest=h.hexdigest()[:16], stage_ms=stages)
+    return turn
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def ab(old: str, new: str, reps: int, calls: int) -> int:
+    turns = []
+    for root in (old, new, new, old):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), root, "--turn",
+             "--reps", str(reps), "--calls", str(calls)],
+            capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+        turn = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(turn))
+        turns.append(turn)
+    same = all(t[k] == turns[0][k] for t in turns
+               for k in ("entropy_digest", "decorr_digest", "decode_digest"))
+    sides = {"old": turns[0::3], "new": turns[1:3]}
+    stage_names = list(turns[0]["stage_ms"][0])
+    print(json.dumps({
+        "same_outputs": same,
+        "bad_blocks": sum(t["bad_blocks"] for t in turns),
+        **{key: {side: [t[key] for t in ts] for side, ts in sides.items()}
+           for key in ("entropy_ms", "decorr_ms")},
+        **{key: {side: [r for t in ts for r in t[key]]
+                 for side, ts in sides.items()}
+           for key in ("staging_ms", "msamples_per_s")},
+        "stage_ms_median": {
+            side: {s: _median([m[s] for t in ts for m in t["stage_ms"]])
+                   for s in stage_names}
+            for side, ts in sides.items()}}))
+    return 0 if same and not any(t["bad_blocks"] for t in turns) else 1
+
+
+def _mixed_buckets(cs):
+    """(name, bucket, decorrelation kernel, its CUDA inputs) of the three
+    buckets `--runs` times; the residuals (and the wvc arm's corrections)
+    come from the root's entropy and correction kernels."""
+    import torch
+
+    from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+    from wvpk_torch.ops.decorr_cuda import decorr_post_cuda, \
+        decorr_post_wvc_cuda
+    from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda, \
+        entropy_decode_wvc_cuda
+    from wvpk_torch.ops.wvc_cuda import wvc_corrections_cuda
+
+    dev = torch.device("cuda")
+    files, _ = cs.make_hybrid()
+    hybrid = cs.parse_corpus(files, len(files) * cs.HYBRID_COPIES)[0]
+    pairs, _ = cs.make_wvc()
+    wvc = cs.parse_corpus(pairs, len(pairs) * cs.WVC_COPIES)[0]
+    mixed = [cs.make_mixed(k)[0]
+             for k in range(cs.MIX_FILES * len(cs.MIX_CHAINS))]
+    mixed = cs.parse_corpus(mixed, len(mixed))[0]
+    for name, states in (("hybrid", hybrid), ("wvc", wvc),
+                         ("mixed_chains", mixed)):
+        b = max(group_blocks(states), key=lambda x: len(x.states))
+        t = bucket_tensors(b, dev)
+        args, kw = cs._entropy_io(t, b.profile)
+        if b.profile.has_wvc:
+            res, mc, base, _broke, _ = entropy_decode_wvc_cuda(*args, **kw)
+            corr = wvc_corrections_cuda(t["wvc_words"], mc, base, res)
+            fn, lead = decorr_post_wvc_cuda, (res, corr)
+        else:
+            res = entropy_decode_cuda(*args, hybrid=b.profile.hybrid,
+                                      **kw)[0]
+            fn, lead = decorr_post_cuda, (res,)
+        rest = cs._decorr_args(t, res)[1:]
+        # int32 once (the wrapper converts them on every launch); the mute
+        # limits stay int64, which the wrapper clamps
+        rest = tuple(x.to(torch.int32).contiguous() for x in rest[:-1]) \
+            + rest[-1:]
+        yield name, b, fn, lead + rest
+
+
+def runs(root: str, reps: int) -> int:
+    """`--runs`: the wrapper's side streams against the runs in sequence,
+    at the three mixed buckets."""
+    cs = _import_root(root)
+    import torch
+
+    from wvpk_torch.ops import decorr_cuda
+
+    report, same = {}, True
+    for name, b, fn, args in _mixed_buckets(cs):
+        mono = b.profile.mono
+        wvc = fn is decorr_cuda.decorr_post_wvc_cuda
+        inputs = (args[0], args[1] if wvc else None) + args[1 + wvc:]
+        lanes = decorr_cuda.lane_runs(len(b.states), mono, b.static_terms,
+                                      b.chain_segments)
+
+        def launch(rs, inputs=inputs, mono=mono):
+            return decorr_cuda._launch(*inputs, mono=mono, runs=rs)
+
+        def wrapper(lanes=lanes, launch=launch):
+            return [(lanes, launch(lanes))]
+
+        def sequence(lanes=lanes, launch=launch):
+            return [([r], launch([r])) for r in lanes]
+
+        def lanes_of(parts):
+            """Each output with every lane taken from the call that ran
+            its run."""
+            full = [torch.zeros_like(x) for x in parts[0][1] if x is not None]
+            for rs, outs in parts:
+                for _cid, s, e in rs:
+                    for f, x in zip(full, [x for x in outs if x is not None]):
+                        if f.ndim == 3:
+                            f[:, s:e] = x[:, s:e]
+                        else:
+                            f[s:e] = x[s:e]
+            return full
+
+        same &= all(torch.equal(w, g) for w, g in
+                    zip(lanes_of(wrapper()), lanes_of(sequence())))
+        ms = {"wrapper": [], "sequence": []}
+        for way in (wrapper, sequence, sequence, wrapper):
+            ms[way.__name__].append(_timed(way, reps))
+        report[name] = {"lanes": len(b.states), "wvc": wvc,
+                        "runs": [list(r) for r in lanes], "ms": ms}
+    print(json.dumps({"runs": report, "same_outputs": same}))
+    return 0 if same else 1
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("old", nargs="?")
+    ap.add_argument("new", nargs="?")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--runs", metavar="ROOT",
+                    help="time the lane-run launches of ROOT's kernels")
+    ap.add_argument("--turn", action="store_true",
+                    help="measure the root OLD in this process")
+    a = ap.parse_args()
+    if a.runs:
+        return runs(a.runs, a.reps)
+    if a.turn:
+        print(json.dumps(measure(a.old, a.reps, a.calls)))
+        return 0
+    if not (a.old and a.new):
+        ap.error("give OLD_ROOT and NEW_ROOT, or --runs ROOT")
+    return ab(a.old, a.new, a.reps, a.calls)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
