@@ -56,14 +56,23 @@ Phases, each printing one JSON line:
      sigma-delta modulations of two tones plus noise and 2 are uniform
      random bytes (the coders' worst case); one mono file each for modes
      1 and 3 and one mode-0 file run the other instantiations and the raw
-     CRC. Each DSD kernel against its plain version at the full group
-     and launched on its first 64 lanes, both timed, then decode_states as
-     in 3 (0 CRC errors, 0 mutes,
+     CRC. Each DSD kernel at the full group and launched on its first
+     64 lanes and on 64 lanes of a random signal, all timed, held against
+     its plain version, which runs in the worker pool on the group's host
+     arrays while the card goes on (checked once phase 8 is done; mode 3
+     with 0 lanes in its int64 body),
+     then decode_states as in 3 (0 CRC errors, 0 mutes,
      byte-exact against the source bytes, the scalar oracle on probe
-     blocks, both DSD kernels launched), the rate in byte-values/s and as
-     a realtime factor of DSD64 stereo; one call mixing 16 lossless files
+     blocks, exactly 3 mode-1 and 2 mode-3 launches a call), the rate in
+     byte-values/s and as a realtime factor of DSD64 stereo; the groups
+     on side streams (the main path) against the groups in sequence:
+     equal outputs, both timed; one call mixing 16 lossless files
      with the DSD corpus, right in both parts from its one batched copy;
-     and a stage split;
+     a stage split; then each DSD kernel on 64 edge lanes per profile
+     (wvpk_torch/testgen/edge.py: mode 1 with 1, 4 and 32 bins and mode 3,
+     stereo and mono) against its plain version on a CPU copy, mode 3's
+     int64 body running exactly the lanes staged outside its 32-bit
+     range;
   8. device encode: the encode corpus is the lossless corpus' 192 source
      arrays one after another, a 768 s 16-bit stereo track (33,868,800
      frames, 8,269 blocks of 4,096: 8,269 lanes), at the bench's
@@ -373,6 +382,17 @@ def _outputs(res) -> tuple:
     return res if isinstance(res, tuple) else (res,)
 
 
+def _moved_bytes(args, got, need=None, out_need=None) -> int:
+    """The bytes a launch must move: each input once and each output once,
+    at its tensor's size unless `need` (inputs) or `out_need` (outputs)
+    maps its index to what the lanes hold, at the delivered width."""
+    need, out_need = need or {}, out_need or {}
+    return sum(need[i] if i in need else _tensor_bytes(a)
+               for i, a in enumerate(args)) \
+        + sum(out_need[i] if i in out_need else _tensor_bytes(g)
+              for i, g in enumerate(_outputs(got)))
+
+
 def check_pair(name, kernel, plain, args, kw, timed, run_plain=True,
                need=None, out_need=None, plain_cpu=False):
     """`kernel` against `plain` on the same inputs; raises on any
@@ -388,11 +408,7 @@ def check_pair(name, kernel, plain, args, kw, timed, run_plain=True,
     width."""
     got = kernel(*args, **kw)
     _sync()
-    need, out_need = need or {}, out_need or {}
-    nbytes = sum(need[i] if i in need else _tensor_bytes(a)
-                 for i, a in enumerate(args)) \
-        + sum(out_need[i] if i in out_need else _tensor_bytes(g)
-              for i, g in enumerate(_outputs(got)))
+    nbytes = _moved_bytes(args, got, need, out_need)
     res = {"max_abs_err": None, "ms": None, "plain_ms": None,
            "bytes": nbytes, "bound_ms": 1000 * nbytes / HBM_BYTES_PER_S}
     want = None
@@ -1221,40 +1237,195 @@ def _dsd_need(g, args, codes):
     return need, out_need
 
 
-def compare_dsd(name, states, device):
-    """The DSD kernel at the largest profile group of `states` (the main
-    path's launch) against its plain version, timed, then launched on the
-    group's first 64 lanes, timed and held against the plain outputs of
-    those lanes. A plain decoder's time grows with the steps, not the
-    lanes (one small op per step, whatever the lane count), so it runs
-    once, at the full group. Returns {max_abs_err, ms, plain_ms, bytes,
-    bound_ms, ...}."""
+def _dsd_slice(g, lo, n, device, kernel):
+    """The kernel launched on lanes lo .. lo + n - 1 of group `g`: (its
+    outputs, ms)."""
     from wvpk_torch.engine.dsd_pipeline import group_dsd
 
+    (gs,) = group_dsd(g.sts[lo:lo + n])
+    _pair, args, kw = _dsd_inputs(gs, device)
+    got = kernel(*args, **kw)
+    _sync()
+    return got, _events_ms(lambda: kernel(*args, **kw), 5)
+
+
+def _dsd_host_args(g):
+    """A profile group's kernel arguments as the host arrays they are
+    staged from, and its keywords."""
+    a = g.arrays
+    if g.prof.mode == 1:
+        return ((g.data, a["nbytes"], a["summed"], a["value0"], a["nvals"]),
+                dict(bins=g.prof.bins, mono=g.prof.mono, nsteps=g.nsteps))
+    return ((g.data, a["nbytes"], a["ptable"], a["filters"], a["value0"],
+             a["nsamples"]), dict(mono=g.prof.mono, nsteps=g.nsteps))
+
+
+def plain_dsd(mode, arrays, kw):
+    """A DSD group's plain decode on the CPU from its host arrays (numpy):
+    (its outputs as numpy arrays, ms). Runs in a worker process."""
+    from wvpk_torch.ops import dsd
+
+    torch.set_num_threads(1)
+    fn = dsd.dsd_fast_decode_bytes if mode == 1 else \
+        dsd.dsd_high_decode_bytes
+    t0 = time.perf_counter()
+    out = fn(*(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays),
+             **kw)
+    return [o.numpy() for o in out], 1000 * (time.perf_counter() - t0)
+
+
+def _launcher(kernel, args, kw):
+    """The DSD kernel alone on `args` (its wrapper's checks made once):
+    dsd_cuda.dsd_fast_launcher / dsd_high_launcher."""
+    from wvpk_torch.ops import dsd_cuda
+
+    if kernel is dsd_cuda.dsd_fast_decode_cuda:
+        return dsd_cuda.dsd_fast_launcher(*args, **kw)
+    return dsd_cuda.dsd_high_launcher(*args, **kw)
+
+
+def _wide_lanes(kernel):
+    """The lanes dsd_high's last launch ran in its int64 body (None for
+    mode 1)."""
+    from wvpk_torch.ops import dsd_cuda
+
+    if kernel is not dsd_cuda.dsd_high_decode_cuda:
+        return None
+    return int(dsd_cuda.dsd_high_decode_cuda.wide_lanes)
+
+
+def compare_dsd(name, states, device, pool):
+    """The DSD kernel at the largest profile group of `states` (the main
+    path's launch), timed (ms: the wrapper's call, its one read of the
+    input limits included; kernel_ms: the kernel alone), then launched on
+    the group's first 64 lanes (the first signal) and, in a group of
+    DSD_SIGNALS files, on 64 lanes of its first random signal, each
+    timed. The plain version runs once, at the full group, in the worker
+    pool on the host arrays the group is staged from (a plain decoder's
+    time grows with the steps, not the lanes: one small op per step), so
+    the card goes on meanwhile. Returns a callable that waits for it,
+    holds every launch against the plain outputs of its lanes and the
+    CRCs against the headers, prints the phase line and returns {max_abs_err,
+    ms, plain_ms, bytes, bound_ms, ...}. Mode 3 reports the lanes its
+    int64 body ran (0 on the corpus)."""
     g, groups = _largest_dsd_group(states)
-    (kernel, plain), args, kw = _dsd_inputs(g, device)
+    (kernel, _plain), args, kw = _dsd_inputs(g, device)
+    host_args, host_kw = _dsd_host_args(g)
+    job = pool.submit(plain_dsd, g.prof.mode, host_args, host_kw)
     # one launch first: mode 1's bound counts the table rows its codes
     # visit (the codes are then held against the plain version)
     need, out_need = _dsd_need(g, args, kernel(*args, **kw)[0])
-    got, want, res = check_pair(name, kernel, plain, args, kw, True,
-                                need=need, out_need=out_need,
-                                plain_cpu=len(g.sts) <= CPU_PLAIN_LANES)
-    hdr = torch.tensor([st.header.crc for st in g.sts], dtype=torch.int32)
-    if not torch.equal(got[-1].cpu(), hdr):
-        raise AssertionError(f"{name}: kernel CRCs differ from the headers")
+    got, _want, res = check_pair(name, kernel, None, args, kw, True,
+                                 run_plain=False, need=need,
+                                 out_need=out_need)
+    wide = _wide_lanes(kernel)
     n = min(64, len(g.sts))
-    (g64,) = group_dsd(g.sts[:n])
-    _pair, args64, kw64 = _dsd_inputs(g64, device)
-    got64 = kernel(*args64, **kw64)
-    _sync()
-    res.update(lanes=len(g.sts), nsteps=g.nsteps,
+    slices = {"slice": (0, *_dsd_slice(g, 0, n, device, kernel))}
+    res.update(kernel_ms=_events_ms(_launcher(kernel, args, kw), 5),
+               lanes=len(g.sts), nsteps=g.nsteps,
                payload_cap=int(g.data.shape[1]), plain_lanes=len(g.sts),
-               slice_lanes=n,
-               slice_max_abs_err=check_prefix(name, want, got64),
-               slice_ms=_events_ms(lambda: kernel(*args64, **kw64), 5),
+               slice_lanes=n, int64_lanes=wide,
                profile_groups=[len(x.sts) for x in groups])
-    print(json.dumps({"phase": f"{name}_kernel_vs_plain", **res}))
-    return res
+    if len(g.sts) >= DSD_SIGNALS * 64:
+        lo = len(g.sts) // DSD_SIGNALS * (DSD_SIGNALS - DSD_RANDOM)
+        slices["random_slice"] = (lo, *_dsd_slice(g, lo, 64, device,
+                                                 kernel))
+        res["random_slice_first_lane"] = lo
+
+    def finish():
+        outs, plain_ms = job.result()
+        want = tuple(torch.from_numpy(w).to(device) for w in outs)
+        pairs = list(zip(want, got))
+        for i, (w, x) in enumerate(pairs):
+            if not torch.equal(w, x):
+                raise AssertionError(
+                    f"{name} kernel != plain version: output {i}")
+        res.update(max_abs_err=max(_max_abs_err(w, x) for w, x in pairs),
+                   plain_ms=plain_ms, plain_device="cpu")
+        hdr = torch.tensor([st.header.crc for st in g.sts],
+                           dtype=torch.int32)
+        if not torch.equal(got[-1].cpu(), hdr):
+            raise AssertionError(f"{name}: kernel CRCs differ from the "
+                                 "headers")
+        if wide:
+            raise AssertionError(f"{name}: {wide} lanes ran the int64 body")
+        for key, (lo, out, ms) in slices.items():
+            res[f"{key}_max_abs_err"] = check_prefix(
+                f"{name} lanes {lo}..", tuple(w[lo:] for w in want), out)
+            res[f"{key}_ms"] = ms
+        print(json.dumps({"phase": f"{name}_kernel_vs_plain", **res}))
+        return res
+    return finish
+
+
+def dsd_side_vs_sequence(states, device):
+    """A call's DSD groups decoded on side streams (decode_groups, the
+    main path) and one after another on the current stream: equal
+    outputs; both timed with CUDA events, in turns side, sequence,
+    sequence, side (ms a call, the wrappers' checks included), beside
+    each group's own time."""
+    from wvpk_torch.engine import dsd_pipeline as dp
+
+    groups = dp.group_dsd(states)
+    staged = [dp.group_tensors(g, device) for g in groups]
+
+    def side():
+        return dp.decode_groups(groups, staged)
+
+    def sequence():
+        return [dp.decode_group(g, t) for g, t in zip(groups, staged)]
+
+    a, b = side(), sequence()
+    _sync()
+    for k, (x, y) in enumerate(zip(a, b)):
+        for u, v in zip(x, y):
+            if not ((u is None and v is None) or torch.equal(u, v)):
+                raise AssertionError(f"DSD group {k}: side streams differ "
+                                     "from the sequence")
+    turns = [(fn.__name__, _events_ms(fn, 3))
+             for fn in (side, sequence, sequence, side)]
+    per_group = {f"mode{g.prof.mode}_{'mono' if g.prof.mono else 'stereo'}"
+                 f"_bins{g.prof.bins}": _events_ms(
+                     lambda g=g, t=t: dp.decode_group(g, t), 3)
+                 for g, t in zip(groups, staged)}
+    return {"side_ms": [ms for n, ms in turns if n == "side"],
+            "sequence_ms": [ms for n, ms in turns if n == "sequence"],
+            "group_ms": per_group}
+
+
+def phase_dsd_edges(dev, jobs):
+    """Each DSD kernel on 64 edge lanes per profile (testgen/edge.py),
+    against its plain version on a CPU copy: out, err and crc equal, some
+    lanes clean and some not; mode 3's int64 body ran exactly the lanes
+    staged outside the 32-bit body's range."""
+    from wvpk_torch.engine.dsd_pipeline import group_dsd
+
+    results = {}
+    for profile, fut in jobs.items():
+        states = fut.result()
+        (g,) = group_dsd(states)
+        (kernel, plain), args, kw = _dsd_inputs(g, dev)
+        _got, want, res = check_pair(f"dsd edge lanes {profile}", kernel,
+                                     plain, args, kw, True, plain_cpu=True)
+        hdr = torch.tensor([st.header.crc for st in states],
+                           dtype=torch.int32)
+        clean = int((want[-1].cpu() == hdr).sum())
+        if not 0 < clean < len(states):
+            raise AssertionError(f"dsd edge lanes {profile}: {clean} clean "
+                                 f"lanes of {len(states)}")
+        wide = _wide_lanes(kernel)
+        if wide is not None:
+            from wvpk_torch.ops.dsd_cuda import int64_lanes
+
+            expect = int(int64_lanes(args[2], args[3], g.prof.mono).sum())
+            if wide != expect or not wide:
+                raise AssertionError(f"dsd edge lanes {profile}: {wide} "
+                                     f"int64-body lanes, {expect} staged")
+        res.update(lanes=len(states), nsteps=g.nsteps, clean_lanes=clean,
+                   payload_cap=int(g.data.shape[1]), int64_lanes=wide)
+        results[profile] = res
+    print(json.dumps({"phase": "dsd_edge_lanes_vs_plain_on_cpu",
+                      "results": results}))
 
 
 def check_dsd(states, files):
@@ -1293,14 +1464,12 @@ def dsd_stage_breakdown(states, device):
 
     groups = dp.group_dsd(states)
     mark("staging")
-    launched = []
-    for g in groups:
-        t = dp.group_tensors(g, device)
-        mark("h2d")
-        outs, crc, err = dp.decode_group(g, t)
-        mark("decode_kernels")
-        launched.append(dp.deliver_group(g, outs, crc, err))
-        mark("deliver")
+    staged = [dp.group_tensors(g, device) for g in groups]
+    mark("h2d")
+    decoded = dp.decode_groups(groups, staged)
+    mark("decode_kernels")
+    launched = [dp.deliver_group(g, *r) for g, r in zip(groups, decoded)]
+    mark("deliver")
     fetched = _fetch_arrays(dp.fetch_list(launched))
     mark("d2h")
     dp.finalize_dsd_groups(launched, fetched)
@@ -1308,11 +1477,12 @@ def dsd_stage_breakdown(states, device):
     return marks
 
 
-def phase_dsd(dev, jobs, lossless):
+def phase_dsd(dev, pool, jobs, lossless):
     """Phase 7. `jobs` from submit_dsd; `lossless` the (files, pcms) of
     the lossless corpus, whose first 16 files join the mixed call.
-    Returns ({kernel row: results}, launches, a mode-3 file and its
-    source for the CLI)."""
+    Returns ({kernel row: a callable that checks the kernel against its
+    plain version, run in `pool`, and returns its results}, launches, a
+    mode-3 file and its source for the CLI)."""
     from wvpk_torch.container import parse_blocks
 
     t0 = time.perf_counter()
@@ -1335,13 +1505,21 @@ def phase_dsd(dev, jobs, lossless):
         "bytes": sum(len(f.result()[0]) for v in jobs.values() for f in v),
         "seconds": time.perf_counter() - t0}))
 
-    rows = {name: compare_dsd(name, groups[name], dev)
-            for name in [g[0] for g in DSD_GROUPS + DSD_EXTRA[:2]]}
+    # the kernels against their plain versions: the plain decodes run in
+    # the worker pool while the card goes on, and are checked at the end
+    checks = {name: compare_dsd(name, groups[name], dev, pool)
+              for name in [g[0] for g in DSD_GROUPS + DSD_EXTRA[:2]]}
 
     launches = decode_phase(
         "dsd", states, vals, dev, ("dsd_fast", "dsd_high"),
         check_dsd(states, files), rate_key="mbytevals_per_s",
         realtime=DSD64_STEREO_BYTEVALS_PER_S)
+    # a call: one launch per mode-1 group (bins 4, bins 32, mono) and per
+    # mode-3 group (stereo, mono); four calls
+    if (launches["dsd_fast"], launches["dsd_high"]) != (3 * 4, 2 * 4):
+        raise AssertionError(f"dsd: launches a call differ: {launches}")
+    print(json.dumps({"phase": "dsd_groups_side_streams_vs_sequence",
+                      **dsd_side_vs_sequence(states, dev)}))
 
     # one call mixing 16 lossless files with the DSD corpus
     from wvpk_torch.engine import decode_states
@@ -1367,7 +1545,7 @@ def phase_dsd(dev, jobs, lossless):
     print(json.dumps({"phase": "dsd_stage_seconds",
                       "stages": dsd_stage_breakdown(states, dev)}))
     wv, src = jobs["dsd_high"][0].result()
-    return rows, launches, (wv, src)
+    return checks, launches, (wv, src)
 
 
 def track_head(frames=None):
@@ -1570,13 +1748,17 @@ def submit_variants(pool, dev):
             ("invert_mono", "invert", mono, {}),
             ("invert_high", "invert", head, dict(preset="high"))):
         lanes = stage_variant(pcm, dev, **options)
-        args, kw, _need, _out = _enc_launches(lanes, kind)
+        args, kw, need, out_need = _enc_launches(lanes, kind)
         got = _flat(kernels[kind][0])(*args, **kw)
         _sync()
+        if kind != "invert":
+            out_need = _payload_need(out_need, kernels[kind][0](*args, **kw))
+        nbytes = _moved_bytes(args, got, need, out_need)
         ms = _events_ms(lambda: kernels[kind][0](*args, **kw), 5)
         arrays = [a.cpu().numpy() for a in args]
-        jobs.append((name, got, ms, dict(lanes=len(lanes.starts),
-                                         profile=kw),
+        jobs.append((name, got, ms, dict(
+            lanes=len(lanes.starts), profile=kw, bytes=nbytes,
+            bound_ms=1000 * nbytes / HBM_BYTES_PER_S),
                      pool.submit(plain_encode_kernel, kind, arrays, kw)))
     return jobs
 
@@ -1921,6 +2103,11 @@ def main() -> int:
                          for k in range(MIX_FILES * len(MIX_CHAINS))]
         wvx_futures = [pool.submit(make_wvx, i) for i in range(len(WVX_FILES))]
         dsd_jobs = submit_dsd(pool)
+        from wvpk_torch.testgen.edge import DSD_EDGE_PROFILES, \
+            dsd_edge_states
+
+        dsd_edge_jobs = {p: pool.submit(dsd_edge_states, p, EDGE_LANES, 13)
+                         for p in DSD_EDGE_PROFILES}
         cpu_encodes = {name: pool.submit(cpu_encode, name)
                        for name in ENC_SMALL}
         lossless, l_launches, (l_files, l_pcms) = phase_lossless(dev)
@@ -1931,9 +2118,13 @@ def main() -> int:
         wvc, c_launches, ((c_wv, c_wvc), c_pcm) = phase_wvc(dev)
         wvx, x_launches, (f_file, f_pcm, f_exp) = phase_float_wvx(
             dev, wvx_futures)
-        dsd, d_launches, (d_wv, d_src) = phase_dsd(dev, dsd_jobs,
-                                                   (l_files, l_pcms))
+        dsd_checks, d_launches, (d_wv, d_src) = phase_dsd(
+            dev, pool, dsd_jobs, (l_files, l_pcms))
+        phase_dsd_edges(dev, dsd_edge_jobs)
         enc, e_launches = phase_encode(dev, pool, cpu_encodes)
+        # the DSD kernels against their plain versions, which ran in the
+        # worker pool meanwhile
+        dsd = {name: check() for name, check in dsd_checks.items()}
 
     from wvpk_torch.io.pcm import format_samples
 
@@ -2000,12 +2191,15 @@ def main() -> int:
     ]
     # no PyTorch or CUDA library call computes these coders: library_ms is
     # null; the bound is the bytes moved (integer work only)
+    # dsd_high's rows also give the lanes its int64 body ran
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"wvpk_torch/csrc/{src}",
          "replaces": f"wvpk/ops/{rep}", "launches": n,
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": "bytes", "library_ms": None}
+         "bound_by": "bytes", "library_ms": None,
+         **({"int64_lanes": r["int64_lanes"]}
+            if r.get("int64_lanes") is not None else {})}
         for name, src, rep, n, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

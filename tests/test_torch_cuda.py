@@ -22,7 +22,7 @@ from wvpk_torch.engine.dsd_pipeline import group_dsd, group_tensors
 from wvpk_torch.engine.staging import bucket_tensors, group_blocks
 from wvpk_torch.ops.dsd import dsd_fast_decode_bytes, dsd_high_decode_bytes
 from wvpk_torch.ops.dsd_cuda import dsd_fast_decode_cuda, \
-    dsd_high_decode_cuda
+    dsd_high_decode_cuda, int64_lanes
 from wvpk_torch.ops.decorr import decorr_post, decorr_post_wvc
 from wvpk_torch.ops.decorr_cuda import CHAINS, decorr_post_cuda, \
     decorr_post_wvc_cuda
@@ -37,7 +37,8 @@ from wvpk_torch.ops.wvx_cuda import wvx_inject_cuda
 from wvpk_torch.ref import decode_block
 from wvpk_torch.testgen import EncodeSpec, encode_dsd_file, encode_file, \
     encode_multichannel
-from wvpk_torch.testgen.edge import EDGE_PROFILES, edge_states
+from wvpk_torch.testgen.edge import DSD_EDGE_PROFILES, EDGE_PROFILES, \
+    dsd_edge_states, edge_states
 from wvpk_torch.testgen.encoder import encode_blocks
 
 pytestmark = pytest.mark.cuda
@@ -579,6 +580,73 @@ def test_dsd_kernels_match_plain(cuda, name):
         assert torch.equal(w, g)
     hdr = torch.tensor([st.header.crc for st in states], dtype=torch.int32)
     assert torch.equal(got[-1].cpu(), hdr)
+
+
+@pytest.mark.parametrize("profile", sorted(DSD_EDGE_PROFILES))
+def test_dsd_kernel_edge_lanes_match_plain(cuda, profile):
+    """64 edge lanes per DSD profile (testgen/edge.py: empty rows, the
+    mult == 0 reset with 4 and fewer bytes left, indexes past the table,
+    truncated payloads, rows at the 65,280 ceiling; mode 3 filters outside
+    the 32-bit body's range, all-0x00 and all-0xff payloads; byte counts
+    ending 1 to 3 bytes before the row width): out, err and crc equal the
+    plain version's; the mode-3 kernel ran exactly the out-of-range lanes
+    in its int64 body."""
+    states = dsd_edge_states(profile, 64, seed=9)
+    args, kwargs = dsd_kernel_args(states, cuda)
+    mode = DSD_EDGE_PROFILES[profile][0]
+    kernel, plain = ((dsd_fast_decode_cuda, dsd_fast_decode_bytes)
+                     if mode == 1 else
+                     (dsd_high_decode_cuda, dsd_high_decode_bytes))
+    got = kernel(*args, **kwargs)
+    want = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    if mode == 3:
+        wide = int(int64_lanes(args[2], args[3], kwargs["mono"]).sum())
+        assert int(dsd_high_decode_cuda.wide_lanes) == wide > 0
+
+
+def test_dsd_wrappers_refuse_what_the_kernels_cannot_decode(cuda):
+    """A summed entry outside [0, 65535] (the kernel holds the tables as
+    uint16), a byte count past the row width and a row width that is not
+    whole words: ValueError, no launch."""
+    states = dsd_group(1, False, 120, history_bits=2)
+    args, kwargs = dsd_kernel_args(states, cuda)
+    n = dsd_fast_decode_cuda.launches
+    for k, v in ((2, 1 << 16), (2, -1), (1, args[0].shape[1] + 1)):
+        bad = list(args)
+        bad[k] = bad[k].clone()
+        bad[k][-1] = v
+        with pytest.raises(ValueError):
+            dsd_fast_decode_cuda(*bad, **kwargs)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dsd_fast_decode_cuda(args[0][:, :-1].contiguous(), *args[1:],
+                             **kwargs)
+    assert dsd_fast_decode_cuda.launches == n
+
+
+def test_dsd_groups_on_side_streams_match_sequence(cuda):
+    """A call's mode-1 and mode-3 groups launch on side streams
+    (dsd_pipeline.decode_groups): the same outputs as the groups decoded
+    one after another on the current stream, one launch a group."""
+    from wvpk_torch.engine import dsd_pipeline as dp
+
+    states = [st for p in ("fast_bins4", "fast_bins32", "high", "high_mono")
+              for st in dsd_edge_states(p, 64, seed=10)]
+    states += dsd_group(0, False, 121)
+    groups = dp.group_dsd(states)
+    staged = [dp.group_tensors(g, cuda) for g in groups]
+    fast, high = (dsd_fast_decode_cuda.launches,
+                  dsd_high_decode_cuda.launches)
+    side = dp.decode_groups(groups, staged)
+    assert (dsd_fast_decode_cuda.launches - fast,
+            dsd_high_decode_cuda.launches - high) == (2, 2)
+    seq = [dp.decode_group(g, t) for g, t in zip(groups, staged)]
+    torch.cuda.synchronize()
+    for s, q in zip(side, seq):
+        for a, b in zip(s, q):
+            assert (a is None and b is None) or torch.equal(a, b)
 
 
 def _chains(rng, L, mono, pool=None, most=17):

@@ -2,9 +2,10 @@
 
 Each case encodes a few DSD blocks with wvpk.testgen.encode_dsd_file,
 parses them with wvpk's container, stages them once as numpy arrays and
-hands the same arrays to both packages. Integer codec: every output is
-compared exactly (codes, err, CRCs), and on a clean stream the CRC must
-also equal the block header's.
+hands the same arrays to both packages; the edge-lane cases take the
+port's testgen/edge.py lanes, which reach every branch of the coders.
+Integer codec: every output is compared exactly (codes, err, CRCs), and
+on a clean stream the CRC must also equal the block header's.
 """
 
 import numpy as np
@@ -16,12 +17,14 @@ from wvpk.ops.dsd import dsd_fast_decode as jax_fast
 from wvpk.ops.dsd import dsd_high_decode as jax_high
 from wvpk.ops.dsd import dsd_raw_crc as jax_raw_crc
 from wvpk.testgen import encode_dsd_file
+from wvpk_torch.engine.dsd_pipeline import group_dsd, group_tensors
 from wvpk_torch.ops.dsd import dsd_fast_decode, dsd_fast_decode_bytes, \
     dsd_high_decode, dsd_high_decode_bytes, dsd_raw_crc
 from wvpk_torch.ops.dsd_cuda import dsd_fast_decode_cuda, \
-    dsd_high_decode_cuda
+    dsd_high_decode_cuda, int64_lanes
 from wvpk_torch.ops.dsd_select import dsd_fast_decode_any, \
     dsd_high_decode_any
+from wvpk_torch.testgen.edge import DSD_EDGE_PROFILES, dsd_edge_states
 
 
 def _pow2(n, lo=64):
@@ -220,3 +223,121 @@ def test_dispatch_takes_plain_version_on_cpu():
         assert torch.equal(w, g)
     with pytest.raises(ValueError, match="CUDA"):
         dsd_high_decode_cuda(*args, mono=True, nsteps=128)
+
+
+# -- edge lanes (wvpk_torch/testgen/edge.py): every branch of the coders --
+
+def _fast_branches(st, mono):
+    """The branches a scalar mode-1 decode of `st` takes (DsdUtils.cs:
+    244-304, the reference's byte loop for the renormalisation)."""
+    M = 0xFFFFFFFF
+    d = st.dsd
+    tab = d.summed_probabilities.astype(np.int64)
+    data, nb = d.data, len(d.data)
+    value, low, high, p0, p1, bptr = d.value, 0, M, 0, 0, 0
+    hit = set()
+    for _ in range(st.header.block_samples * (1 if mono else 2)):
+        r = tab[p0]
+        sp = int(r[255])
+        if sp == 0:
+            hit.add("empty_row")
+            break
+        if sp == 255 * 256:
+            hit.add("ceiling_row")
+        mult = ((high - low) & M) // sp
+        if mult == 0:
+            if nb - bptr >= 4:
+                hit.add("reload4")
+                value = int.from_bytes(data[bptr:bptr + 4], "big")
+                bptr += 4
+            else:
+                hit.add("reload_short")
+            low, high, mult = 0, M, M // sp
+        index = ((value - low) & M) // mult
+        if index >= sp:
+            hit.add("past_table")
+            break
+        code = int(np.searchsorted(r, index, side="right"))
+        base = int(r[code - 1]) if code else 0
+        low = (low + base * mult) & M
+        high = (low + (int(r[code]) - base) * mult - 1) & M
+        while ((high ^ low) & 0xFF000000) == 0:
+            if bptr >= nb:
+                hit.add("out_of_bytes")
+                break
+            value = ((value << 8) | data[bptr]) & M
+            bptr += 1
+            high, low = ((high << 8) | 0xFF) & M, (low << 8) & M
+        h = code & (d.history_bins - 1)
+        p0, p1 = (h, p1) if mono else (p1, h)
+    return hit
+
+
+def _edge_rows_end_short(states):
+    """Byte counts ending 1, 2 and 3 bytes before the group's row width
+    (the longest payload padded to a multiple of 4)."""
+    nb = [len(st.dsd.data) for st in states]
+    width = -(-max(nb) // 4) * 4
+    return {width - n for n in nb} >= {1, 2, 3}
+
+
+@pytest.mark.parametrize("profile", sorted(DSD_EDGE_PROFILES))
+def test_edge_lanes_plain_matches_xla(profile):
+    """64 edge lanes per DSD profile: the plain decoders equal wvpk's XLA
+    ones on every output (codes, err, CRCs); the lanes reach every branch
+    the kernels take (mode 1: an empty row, the mult == 0 reset with 4 and
+    with fewer bytes left, an index past the table, a payload running out
+    mid-step, a row at the 65,280 ceiling; mode 3: filters outside the
+    32-bit body's range, all-0x00 and all-0xff payloads, truncation), and
+    byte counts end 1 to 3 bytes before the row width."""
+    mode, mono, _hb = DSD_EDGE_PROFILES[profile]
+    states = dsd_edge_states(profile, 64, seed=7)
+    assert _edge_rows_end_short(states)
+    hdr = _header_crcs(states)
+    if mode == 1:
+        _out, err, crc = run_fast(states, mono)
+        assert set.union(*(_fast_branches(st, mono) for st in states)) == {
+            "empty_row", "reload4", "reload_short", "past_table",
+            "out_of_bytes", "ceiling_row"}
+        assert err.any() and not err.all()
+    else:
+        _out, crc = run_high(states, mono)
+        wide = int64_lanes(*_t(np.stack([st.dsd.ptable for st in states]),
+                               np.stack([st.dsd.filters for st in states])),
+                           mono)
+        assert 0 < int(wide.sum()) < len(states)
+        assert {bytes(set(st.dsd.data)) for st in states} >= {b"\x00",
+                                                              b"\xff"}
+    clean = crc.numpy() == hdr
+    assert clean.any() and not clean.all()
+
+
+def test_payload_padding_leaves_plain_decode_unchanged():
+    """group_dsd pads each group's payload rows to a multiple of 4 bytes
+    (the kernels read whole words); the plain decoders read only each
+    lane's `nbytes`, so the padding and what it holds change nothing."""
+    states = {p: dsd_edge_states(p, 16, seed=8)
+              for p in ("fast_bins4", "high_mono")}
+    for profile, sts in states.items():
+        (g,) = group_dsd(sts)
+        t = group_tensors(g, torch.device("cpu"))
+        width = int(g.arrays["nbytes"].max())
+        assert t["data"].shape[1] == -(-width // 4) * 4 > width
+        variants = [t["data"][:, :width],
+                    torch.nn.functional.pad(t["data"][:, :width],
+                                            (0, 8), value=0xFF),
+                    t["data"]]
+        outs = []
+        for data in variants:
+            if g.prof.mode == 1:
+                outs.append(dsd_fast_decode_bytes(
+                    data, t["nbytes"], t["summed"], t["value0"], t["nvals"],
+                    bins=g.prof.bins, mono=g.prof.mono, nsteps=g.nsteps))
+            else:
+                outs.append(dsd_high_decode_bytes(
+                    data, t["nbytes"], t["ptable"], t["filters"],
+                    t["value0"], t["nsamples"], mono=g.prof.mono,
+                    nsteps=g.nsteps))
+        for other in outs[1:]:
+            for w, o in zip(outs[0], other):
+                assert torch.equal(w, o), profile

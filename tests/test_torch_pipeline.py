@@ -535,6 +535,70 @@ def test_failed_wvc_pairing_closes_the_correction_file(corpus, tmp_path,
         assert _open_fds() == before
 
 
+def test_truncated_wvc_streaming_pairs_only_whole_blocks(corpus, tmp_path):
+    """A .wvc cut off inside its last block: the streaming open pairs
+    only the correction blocks that lie inside the file, as the eager
+    pair_wvc does, so neither reports MODE_WVC | MODE_LOSSLESS; the first
+    block decodes lossless, the cut-off one lossy. wvpk's streaming reader
+    pairs on the header alone and still reports MODE_WVC (a fault the
+    port does not copy)."""
+    wv, wvc = corpus["hybrid_wvc"]
+    (tmp_path / "h.wv").write_bytes(wv)
+    (tmp_path / "h.wvc").write_bytes(wvc[:-10])
+    src = noise(512, 2, 4000, 12).reshape(-1)
+    lossy = _unpack_all(api, wv, device="cpu")[1]
+    assert not np.array_equal(lossy[512:], src[512:])
+    lossless = consts.MODE_WVC | consts.MODE_LOSSLESS
+    for streaming in (False, True):
+        wpc = api.WavpackOpenFileInput(
+            str(tmp_path / "h.wv"), flags=consts.OPEN_WVC,
+            streaming=streaming, device="cpu")
+        assert (wpc.wvc_paired, wpc.wvc_all_paired) == (1, False)
+        assert api.WavpackGetMode(wpc) & lossless == 0
+        buf = np.zeros(1024, np.int32)
+        assert api.WavpackUnpackSamples(wpc, buf, 512) == 512
+        wpc.close()
+        np.testing.assert_array_equal(buf[:512], src[:512])
+        np.testing.assert_array_equal(buf[512:], lossy[512:])
+    ref = jax_api.WavpackOpenFileInput(str(tmp_path / "h.wv"),
+                                       flags=consts.OPEN_WVC, streaming=True)
+    assert ref.wvc_all_paired
+    assert jax_api.WavpackGetMode(ref) & lossless == lossless
+    ref.close()
+
+
+def test_wvx_values_wider_than_max_width_pin_the_engine_counter():
+    """A new-style wvx block (int32_max_width > 0) whose values are wider
+    than max_width, so fewer wvx bits are read than sent. The port stages
+    the getbits counter after the leading 5-bit field as bc = 3, as wvpk's
+    engine does (wvpk/engine/staging.py:249-251), and with it the window's
+    lookahead bit; wvpk's scalar oracle starts the counter at 0
+    (wvpk/ref/oracle.py:33-37) and decodes these blocks clean, as the
+    encoder stamped them. The C# source that would settle which is right
+    is not in the repository, so this pins the port's present result: the
+    engine's samples and crc_x, a CRC error on both blocks, and the
+    oracle's clean decode beside it. A change to either shows here."""
+    data = encode_file(
+        np.random.default_rng(23).integers(-2**29, 2**29, size=(300, 2)),
+        EncodeSpec(block_samples=150, bytes_stored=4, int32_mode="wvx",
+                   int32_sent_bits=6, int32_max_width=24))
+    states = [b.state for b in parse_blocks(data)]
+    assert [(s.int32_max_width, s.wvx_start_bit) for s in states] == \
+        [(24, 5), (24, 5)]
+    got = decode_states(states, device="cpu")
+    want = jax_decode_states([b.state for b in jax_parse_blocks(data)])
+    oracle = [jax_decode_block(b.state) for b in jax_parse_blocks(data)]
+    assert [g.crc_error for g in got] == [True, True]
+    assert [g.mute_error for g in got] == [False, False]
+    assert [g.crc_x for g in got] == [-1105006744, -1976700115]
+    assert [o.crc_error for o in oracle] == [False, False]
+    assert [o.crc_x for o in oracle] == [s.crc_mvx for s in states]
+    for g, w, o in zip(got, want, oracle):
+        assert (g.crc, g.crc_x, g.crc_error) == (w.crc, w.crc_x, w.crc_error)
+        np.testing.assert_array_equal(g.samples, w.samples)
+        assert not np.array_equal(g.samples, o.samples)
+
+
 def test_explicit_wvc_with_several_inputs_is_refused(corpus, tmp_path):
     """--wvc PATH names one correction file: with several inputs it is
     refused (exit 2, nothing written), never dropped."""

@@ -12,6 +12,12 @@ single files. This module provides the streaming equivalent:
 - `LazyBlocks`: a sequence view that reads + parses one block's payload
   on demand (seek/read of ck_size+8 bytes), behind a bounded LRU, so
   resident payload memory is O(batch), like the reference's reader.
+
+Departure from wvpk/container/stream.py: `LazyBlocks.attach_wvc` pairs a
+correction block only when its whole block lies inside the `.wvc` file,
+the bounds check `blocks.pair_wvc` makes; wvpk's copy pairs on the header
+alone, so with a truncated `.wvc` it counts the cut-off blocks as paired
+and reports MODE_WVC | MODE_LOSSLESS for blocks that decode lossy.
 """
 
 from __future__ import annotations
@@ -94,6 +100,12 @@ class WvcReader:
         self._f = f
         self.entries = [h for h in scan_headers_file(f)
                         if h.block_samples > 0]
+        self.size = f.seek(0, io.SEEK_END)
+
+    def whole(self, ordinal: int) -> bool:
+        """Whether the ordinal-th correction block lies inside the file."""
+        hdr = self.entries[ordinal]
+        return hdr.stream_position + hdr.ck_size + 8 <= self.size
 
     def payload(self, ordinal: int):
         """(payload bytes | None, header) for the ordinal-th correction
@@ -136,23 +148,27 @@ class LazyBlocks:
     def attach_wvc(self, reader: WvcReader) -> int:
         """Pair correction blocks with this file's audio blocks (by
         order, with a (block_index, block_samples) sanity match against
-        the eager header index). Payload reads stay lazy; returns the
-        number of audio blocks that will decode hybrid-lossless."""
+        the eager header index). A correction block cut off by the end of
+        the file is left out, as `blocks.pair_wvc` leaves it out. Payload
+        reads stay lazy; returns the number of audio blocks that will
+        decode hybrid-lossless."""
+        from .. import consts
+
         self._wvc = reader
         self._wvc_ordinal = {}
         self._cache.clear()   # re-parse any cached blocks with pairing
+        whole = [k for k in range(len(reader.entries)) if reader.whole(k)]
         ci = paired = 0
         for i, h in enumerate(self.headers):
-            if h.block_samples <= 0 or ci >= len(reader.entries):
+            if h.block_samples <= 0 or ci >= len(whole):
                 continue
-            c = reader.entries[ci]
+            c = reader.entries[whole[ci]]
             if (c.block_index != h.block_index
                     or c.block_samples != h.block_samples):
                 continue
             ci += 1
-            from .. import consts
             if h.flags & consts.HYBRID_FLAG:
-                self._wvc_ordinal[i] = ci - 1
+                self._wvc_ordinal[i] = whole[ci - 1]
                 paired += 1
         return paired
 

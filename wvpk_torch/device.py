@@ -22,3 +22,16 @@ def resolve(device: str | torch.device) -> torch.device:
             f"unsupported device {str(device)!r}: wvpk_torch runs on 'cpu' "
             "(plain PyTorch) or 'cuda' (CUDA kernels)")
     return dev
+
+
+_side: dict[torch.device, list] = {}
+
+
+def side_streams(dev: torch.device, n: int) -> list:
+    """`n` side streams of the CUDA device `dev`, made at first use and
+    kept (the decorrelation runs of a mixed bucket and a call's DSD groups
+    run on them)."""
+    have = _side.setdefault(dev, [])
+    while len(have) < n:
+        have.append(torch.cuda.Stream(dev))
+    return have[:n]

@@ -13,10 +13,12 @@ batched device-to-host copy, beside the PCM buckets, and
 
 The profile holds no step count or payload capacity (wvpk's static-shape
 keys): a kernel stops each lane at its own counts, so a group is padded
-to its longest lane and a call makes one launch per profile. The payload
-bytes stage as uint8 (L, cap), one copy of their own; the other per-lane
-arrays travel as one int32 blob. Mode 0 is a byte copy: its values stay
-on the host and only its CRC runs on the device.
+to its longest lane (the payload rows to a multiple of 4 bytes) and a
+call makes one launch per profile; on the card the mode-1 and mode-3
+groups launch on side streams and run side by side (`decode_groups`).
+The payload bytes stage as uint8 (L, cap), one copy of their own; the
+other per-lane arrays travel as one int32 blob. Mode 0 is a byte copy:
+its values stay on the host and only its CRC runs on the device.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from .. import consts
 from ..container.blockstate import BlockState
+from ..device import side_streams
 from ..ops.dsd import dsd_raw_crc
 from ..ops.dsd_select import dsd_fast_decode_any, dsd_high_decode_any
 from .fused import build_blob, to_device, unpack_blob
@@ -87,8 +90,9 @@ def group_dsd(states: list[BlockState]) -> list[DsdGroup]:
                               max(int(nvals.max()), 1))
             arrays = {"neff": np.minimum(nvals, lens)}
         else:
+            # the kernels read a payload row as aligned 32-bit words
             data = _pad_bytes([st.dsd.data for st in sts],
-                              max(int(lens.max()), 1))
+                              -(-max(int(lens.max()), 1) // 4) * 4)
             arrays = {"nbytes": lens,
                       "value0": np.asarray([st.dsd.value for st in sts],
                                            np.int64)}
@@ -164,12 +168,49 @@ def deliver_group(g: DsdGroup, outs, crc, err) -> LaunchedDsd:
                        g.nvals)
 
 
+def decode_groups(groups: list[DsdGroup],
+                  staged: list[dict[str, torch.Tensor]]) -> list[tuple]:
+    """decode_group of every group on its staged tensors. On a CUDA device
+    each mode-1 and mode-3 group launches on a side stream of its own, so
+    that the groups' kernels run side by side: every side stream is forked
+    from the current stream (after the staging copies queued there) before
+    the first launch, and joined back into it after the last; mode 0 stays
+    on the current stream. The mode-3 groups launch first: they run the
+    longest, and their blocks then take SMs before the mode-1 blocks fill
+    the card around them. The tensors each stream uses are recorded on
+    it, so the caching allocator hands none back early."""
+    coded = sorted((k for k, g in enumerate(groups) if g.prof.mode != 0),
+                   key=lambda k: groups[k].prof.mode != 3)
+    if not coded or staged[coded[0]]["data"].device.type != "cuda":
+        return [decode_group(g, t) for g, t in zip(groups, staged)]
+    dev = staged[coded[0]]["data"].device
+    main = torch.cuda.current_stream(dev)
+    side = side_streams(dev, len(coded))
+    for stream in side:
+        stream.wait_stream(main)
+    res = [None] * len(groups)
+    for stream, k in zip(side, coded):
+        with torch.cuda.stream(stream):
+            res[k] = decode_group(groups[k], staged[k])
+        for t in staged[k].values():
+            t.record_stream(stream)
+        for t in res[k]:
+            t.record_stream(main)
+    for stream in side:
+        main.wait_stream(stream)
+    return [r if r is not None else decode_group(g, t)
+            for r, g, t in zip(res, groups, staged)]
+
+
 def launch_dsd_states(states: list[BlockState],
                       device: torch.device) -> list[LaunchedDsd]:
-    """Queue every DSD profile group's decode on `device`; nothing is
-    fetched here."""
-    return [deliver_group(g, *decode_group(g, group_tensors(g, device)))
-            for g in group_dsd(states)]
+    """Queue every DSD profile group's decode on `device` (every group's
+    staging first, then the launches, decode_groups); nothing is fetched
+    here."""
+    groups = group_dsd(states)
+    staged = [group_tensors(g, device) for g in groups]
+    return [deliver_group(g, *res)
+            for g, res in zip(groups, decode_groups(groups, staged))]
 
 
 def finalize_dsd_group(ld: LaunchedDsd, crcerr: np.ndarray,

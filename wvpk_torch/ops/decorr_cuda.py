@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from .. import _build, consts
+from ..device import side_streams
 
 I32 = torch.int32
 _INT32_MAX = (1 << 31) - 1
@@ -102,17 +103,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-_side: dict[torch.device, list] = {}
-
-
-def _side_streams(dev: torch.device, n: int) -> list:
-    """`n` side streams of `dev`, made at first use and kept."""
-    have = _side.setdefault(dev, [])
-    while len(have) < n:
-        have.append(torch.cuda.Stream(dev))
-    return have[:n]
-
-
 def _as_i32(name, t, shape, device, kernel="decorr"):
     """`t` as a contiguous int32 tensor on `device`; int64 inputs must
     hold int32 values (the staged histories do)."""
@@ -175,7 +165,7 @@ def _launch(residuals, corr, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
     # fork every side stream before the first launch, or a side stream
     # would wait for the runs launched before it
     main = torch.cuda.current_stream(dev)
-    side = _side_streams(dev, len(runs) - 1)
+    side = side_streams(dev, len(runs) - 1)
     for stream in side:
         stream.wait_stream(main)
     for stream, (chain, lo, hi) in zip([main] + side, runs):

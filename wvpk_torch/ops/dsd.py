@@ -234,7 +234,9 @@ def dsd_high_decode(data, nbytes, ptable0, filters0, value0, nsamples, *,
                 pp = (val[:, c] >> (PRECISION - PRECISION_USE)) \
                     & PTABLE_MASK
                 pt = ptable.gather(1, pp[:, None])[:, 0]
-                split = (low + (((high - low) & M32) >> 8) * (pt >> 16)) \
+                # the entry's upper 16 bits as a uint32 (C#'s uint)
+                split = (low + (((high - low) & M32) >> 8)
+                         * ((pt & M32) >> 16)) \
                     & M32
                 bit1 = value <= split
                 high = torch.where(bit1, split, high)

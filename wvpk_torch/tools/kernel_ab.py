@@ -4,6 +4,8 @@
     python3 wvpk_torch/tools/kernel_ab.py OLD_ROOT NEW_ROOT [--reps 5]
         [--calls 5]
     python3 wvpk_torch/tools/kernel_ab.py --runs ROOT [--reps 5]
+    python3 wvpk_torch/tools/kernel_ab.py --dsd OLD_ROOT NEW_ROOT
+    python3 wvpk_torch/tools/kernel_ab.py --dsd ROOT
 
 Two checkouts, in turns old, new, new, old. Each turn is a process of its
 own with that root's `wvpk_torch` and `chip_smoke.py` first on the path
@@ -32,6 +34,22 @@ sequence, wrapper: the wrapper's call (each run's kernel launched on a
 stream of its own, forked from the current stream and joined back into
 it) and one call a run, in sequence on the current stream. Both must
 give the same outputs.
+
+`--dsd OLD_ROOT NEW_ROOT` runs the same turns on the DSD corpus of
+chip_smoke.submit_dsd (three groups of 696 stereo lanes: mode 1 with 4
+and 32 history bins, mode 3; mono mode 1 and 3 files; a mode-0 file):
+  - each group kernel at the full group, on 64 lanes of the first signal
+    and on 64 lanes of the first random signal (`--reps` launches each,
+    CUDA events), with a digest of each launch's outputs, which must
+    agree across the turns;
+  - decode_states end to end: one warm-up and `--calls` timed calls
+    (Mbytevals/s), then `--calls` runs of the root's
+    chip_smoke.dsd_stage_breakdown.
+`--dsd ROOT` times ROOT's call with its groups on side streams against
+the groups one after another (chip_smoke.dsd_side_vs_sequence, `--calls`
+times, each in turns side, sequence, sequence, side), then its launch
+order (mode 3 first) against the groups' own order on side streams; all
+must give the same outputs.
 
 Needs one CUDA device; imports no jax.
 """
@@ -274,6 +292,175 @@ def runs(root: str, reps: int) -> int:
     return 0 if same else 1
 
 
+def _dsd_corpus(cs):
+    """The root's DSD corpus: (states, byte-values, {group name: states}),
+    its files encoded in a pool as chip_smoke.py encodes them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from wvpk_torch.container import parse_blocks
+
+    with ProcessPoolExecutor(
+            max_workers=cs.POOL_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = cs.submit_dsd(pool)
+        files = {name: [f.result() for f in futs]
+                 for name, futs in jobs.items()}
+    groups = {name: [b.state for wv, _src in fs for b in parse_blocks(wv)]
+              for name, fs in files.items()}
+    vals = sum(src.size for fs in files.values() for _wv, src in fs)
+    return [st for sts in groups.values() for st in sts], vals, groups
+
+
+def measure_dsd(root: str, reps: int, calls: int) -> dict:
+    """One `--dsd` turn: `root`'s DSD kernels and decode_states on its
+    DSD corpus."""
+    cs = _import_root(root)
+    import torch
+
+    from wvpk_torch.engine import decode_states
+    from wvpk_torch.engine.dsd_pipeline import group_dsd
+
+    dev = torch.device("cuda")
+    states, vals, groups = _dsd_corpus(cs)
+    kernels = {}
+    for name, sts in groups.items():
+        if name == "dsd_raw":
+            continue
+        g = max(group_dsd(sts), key=lambda x: len(x.sts))
+        slices = {"full": g}
+        per_file = len(g.sts) // cs.DSD_SIGNALS
+        if len(g.sts) >= cs.DSD_SIGNALS * 64:
+            lo = per_file * (cs.DSD_SIGNALS - cs.DSD_RANDOM)
+            slices["first64"] = group_dsd(g.sts[:64])[0]
+            slices["random64"] = group_dsd(g.sts[lo:lo + 64])[0]
+        row = {"lanes": len(g.sts)}
+        for key, gs in slices.items():
+            (kernel, _plain), args, kw = cs._dsd_inputs(gs, dev)
+            out = kernel(*args, **kw)
+            _timed(lambda: kernel(*args, **kw), reps)   # clocks up
+            row[f"{key}_ms"] = _timed(lambda: kernel(*args, **kw), reps)
+            row[f"{key}_digest"] = _digest(out)
+            if key == "full" and hasattr(cs, "_launcher"):
+                # the kernel alone, without the wrapper's checks
+                row["alone_ms"] = _timed(cs._launcher(kernel, args, kw),
+                                          reps)
+        kernels[name] = row
+    rates, results = [], None
+    for rep in range(calls + 1):
+        results = None
+        t0 = time.perf_counter()
+        results = decode_states(states, dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rep:
+            rates.append(vals / dt / 1e6)
+    bad = sum(r.crc_error or r.mute_error for r in results)
+    h = hashlib.sha256()
+    for r in results:
+        h.update(r.samples.tobytes())
+    results = None
+    stages = [{k: 1000 * v
+               for k, v in cs.dsd_stage_breakdown(states, dev).items()}
+              for _ in range(calls)]
+    return {"root": root, "kernels": kernels, "mbytevals_per_s": rates,
+            "bad_blocks": bad, "decode_digest": h.hexdigest()[:16],
+            "stage_ms": stages,
+            "card": torch.cuda.get_device_name(0)}
+
+
+def ab_dsd(old: str, new: str, reps: int, calls: int) -> int:
+    turns = []
+    for root in (old, new, new, old):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), root, "--dsd-turn",
+             "--reps", str(reps), "--calls", str(calls)],
+            capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+        turn = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(turn))
+        turns.append(turn)
+    digests = [{(name, k): v for name, row in t["kernels"].items()
+                for k, v in row.items() if k.endswith("digest")}
+               | {"decode": t["decode_digest"]} for t in turns]
+    same = all(d == digests[0] for d in digests)
+    sides = {"old": turns[0::3], "new": turns[1:3]}
+    stage_names = list(turns[0]["stage_ms"][0])
+    print(json.dumps({
+        "same_outputs": same,
+        "bad_blocks": sum(t["bad_blocks"] for t in turns),
+        "kernel_ms": {
+            name: {key: {side: [t["kernels"][name].get(key) for t in ts]
+                         for side, ts in sides.items()}
+                   for key in sorted({k for t in turns
+                                      for k in t["kernels"][name]})
+                   if key.endswith("_ms")}
+            for name in turns[0]["kernels"]},
+        "mbytevals_per_s": {side: [r for t in ts
+                                   for r in t["mbytevals_per_s"]]
+                            for side, ts in sides.items()},
+        "stage_ms_median": {
+            side: {s: _median([m[s] for t in ts for m in t["stage_ms"]])
+                   for s in stage_names}
+            for side, ts in sides.items()}}))
+    return 0 if same and not any(t["bad_blocks"] for t in turns) else 1
+
+
+def _side_in_group_order(dp, groups, staged):
+    """decode_groups' side streams with the groups launched in their
+    order of appearance (mode 1 first on the corpus), not mode 3 first."""
+    import torch
+
+    coded = [k for k, g in enumerate(groups) if g.prof.mode != 0]
+    main = torch.cuda.current_stream()
+    side = [torch.cuda.Stream() for _ in coded]
+    for stream in side:
+        stream.wait_stream(main)
+    res = [None] * len(groups)
+    for stream, k in zip(side, coded):
+        with torch.cuda.stream(stream):
+            res[k] = dp.decode_group(groups[k], staged[k])
+    for stream in side:
+        main.wait_stream(stream)
+    return [r if r is not None else dp.decode_group(g, t)
+            for r, g, t in zip(res, groups, staged)]
+
+
+def dsd_streams(root: str, reps: int, calls: int) -> int:
+    """`--dsd ROOT`: the DSD groups on side streams against in sequence
+    (chip_smoke.dsd_side_vs_sequence, `calls` times), then the call's
+    launch order (mode 3 first) against the groups' own order, in turns."""
+    cs = _import_root(root)
+    import torch
+
+    from wvpk_torch.engine import dsd_pipeline as dp
+
+    dev = torch.device("cuda")
+    states, _vals, _groups = _dsd_corpus(cs)
+    runs = [cs.dsd_side_vs_sequence(states, dev) for _ in range(calls)]
+    groups = dp.group_dsd(states)
+    staged = [dp.group_tensors(g, dev) for g in groups]
+
+    def mode3_first():
+        return dp.decode_groups(groups, staged)
+
+    def group_order():
+        return _side_in_group_order(dp, groups, staged)
+
+    same = all(torch.equal(a, b) for x, y in zip(mode3_first(),
+                                                group_order())
+               for a, b in zip(x, y) if a is not None)
+    order = {"mode3_first": [], "group_order": []}
+    for fn in (mode3_first, group_order, group_order, mode3_first) * 2:
+        order[fn.__name__].append(_timed(fn, reps))
+    print(json.dumps({"dsd_streams": runs, "launch_order_ms": order,
+                      "same_outputs": same,
+                      "card": torch.cuda.get_device_name(0)}))
+    return 0 if same else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("old", nargs="?")
@@ -282,14 +469,26 @@ def main() -> int:
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--runs", metavar="ROOT",
                     help="time the lane-run launches of ROOT's kernels")
+    ap.add_argument("--dsd", action="store_true",
+                    help="the DSD corpus: OLD NEW in turns, or one root's "
+                    "side streams against the sequence")
     ap.add_argument("--turn", action="store_true",
                     help="measure the root OLD in this process")
+    ap.add_argument("--dsd-turn", action="store_true",
+                    help="measure the root OLD's DSD path in this process")
     a = ap.parse_args()
     if a.runs:
         return runs(a.runs, a.reps)
     if a.turn:
         print(json.dumps(measure(a.old, a.reps, a.calls)))
         return 0
+    if a.dsd_turn:
+        print(json.dumps(measure_dsd(a.old, a.reps, a.calls)))
+        return 0
+    if a.dsd and a.old and not a.new:
+        return dsd_streams(a.old, a.reps, a.calls)
+    if a.dsd and a.new:
+        return ab_dsd(a.old, a.new, a.reps, a.calls)
     if not (a.old and a.new):
         ap.error("give OLD_ROOT and NEW_ROOT, or --runs ROOT")
     return ab(a.old, a.new, a.reps, a.calls)
