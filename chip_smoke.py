@@ -7,8 +7,10 @@ Phases, each printing one JSON line:
   1. the card's name and power limit (nvidia-smi, a plain line);
   2. build every CUDA kernel from wvpk_torch/csrc, one nvcc per source, all
      started together; ptxas' registers, stack frame and spill bytes of
-     each kernel (every compiled decorrelation chain must have neither
-     stack nor spills to be in registers);
+     each kernel (every compiled decorrelation chain, both word coders and
+     every hybrid chain kernel must have neither stack nor spills to be in
+     registers); the hybrid encode source, the longest build, runs beside
+     phases 3-7 and is joined (its own build line) before phase 8;
   3. lossless: each kernel against its plain PyTorch version on the card,
      bit-exact, at the full bucket (the main path's shape) and launched on
      a 64-lane slice, both timed; then the bench corpus (192 files of 4 s
@@ -79,16 +81,26 @@ Phases, each printing one JSON line:
      settings (the default preset, warm seeding over 512 samples). Each
      encode kernel against its plain version on the card at the main
      path's launch (the warm and the main invert, the word coder, the
-     hybrid scan at HYBRID_BITRATE), timed, and launched on its first 64
-     lanes, timed and held against the plain outputs of those lanes; the
-     other instantiations (hybrid with HYBRID_BALANCE, without
-     HYBRID_BITRATE and mono, a mono invert, the "high" chain's cross
-     terms) launched on 64 lanes and held against their plain versions
-     run on a CPU copy of the inputs in the worker pool. Then
+     hybrid scan at HYBRID_BITRATE through the default chain's kernel,
+     and the run-time hybrid kernel on the same lanes), timed, and
+     launched on its first 64 lanes, timed and held against the plain
+     outputs of those lanes, the word coders' int64-body lanes counted
+     (0); the other instantiations (hybrid with HYBRID_BALANCE, without
+     HYBRID_BITRATE and mono, the fast and high presets' chain kernels
+     stereo and mono, the run-time hybrid kernel, a mono invert, the
+     "high" chain's cross terms) launched on 64 lanes, each hybrid one
+     through the kernel its chain must run, and held against their plain
+     versions run on a CPU copy of the inputs in the worker pool; each word
+     coder on 64 edge lanes of each kind and profile
+     (wvpk_torch/testgen/edge.py::encode_edge_lanes; the hybrid ones
+     through their chain's kernel and the run-time kernel) against its
+     plain version run in the worker pool, the int64 body running exactly
+     the lanes staged outside int32. Then
      encode_device on the track, lossless and hybrid (bitrate 512): one
-     warm-up and three timed calls, the launch counts read (exactly 2
+     warm-up and two timed calls, the launch counts read (exactly 2
      inverts, one of them warm, and 1 word coder a lossless call; 1 warm
-     invert and 1 hybrid scan a hybrid call), the last call split into
+     invert and 1 hybrid scan a hybrid call, through the default chain's
+     kernel and never the run-time one), the last call split into
      its trace stages, one more lossless call under torch.profiler for
      the device's idle share, the output decoded by decode_states on
      the card (0 CRC errors, 0 mutes; lossless sample-exact with its
@@ -167,6 +179,7 @@ DSD64_STEREO_BYTEVALS_PER_S = DSD_RATE // 8 * 2   # 705,600
 # preset, warm seeding over 512 samples, hybrid at bitrate 512; the small
 # files of the CUDA-vs-CPU check are 10 s, the variant launches 64 lanes
 ENC_BLOCK, ENC_WARMUP, ENC_BITRATE = 4096, 512, 512
+ENC_CALLS = 3    # encode_device calls a mode: one warm-up, then timed
 ENC_SMALL_SECONDS, ENC_SLICE_BLOCKS = 10.0, 64
 ENC_SMALL = ("track_slice", "mono", "float", "int32_wvx", "mc51_24bit")
 # the mixed-chain corpus: MIX_FILES files of 4 s 16-bit stereo on each of
@@ -1673,7 +1686,9 @@ def _enc_launches(lanes, kind, warm=False):
             4: 24 * C * L, 5: 8 * C * L, 6: 8 * C * L, 7: 8 * C * L,
             8: 4 * L, 9: chain[4], 10: chain[5], 11: chain[6],
             12: chain[7]}
-    return args, lanes.kw, need, {2: 4 * values}
+    # every lane carries the spec's chain, as the encoder passes it
+    return args, dict(lanes.kw, static_terms=tuple(lanes.spec.terms)), \
+        need, {2: 4 * values}
 
 
 def _payload_need(out_need, got):
@@ -1703,6 +1718,10 @@ def compare_encode(name, kind, lanes, dev, warm=False):
         out_need = _payload_need(out_need, kernel(*args, **kw))
     got, want, res = check_pair(name, _flat(kernel), _flat(plain), args, kw,
                                 True, need=need, out_need=out_need)
+    if kind != "invert":
+        res["int64_lanes"] = int(kernel.wide_lanes)
+    if kind == "hybrid":
+        res["instances"] = _hybrid_instances(kernel, args, kw)
     args64 = _lane_prefix(args, 64)
     got64 = _flat(kernel)(*args64, **kw)
     _sync()
@@ -1710,8 +1729,33 @@ def compare_encode(name, kind, lanes, dev, warm=False):
                slice_lanes=64, slice_max_abs_err=check_prefix(
                    name, want, got64),
                slice_ms=_events_ms(lambda: kernel(*args64, **kw), 5))
+    generic = None
+    if kind == "hybrid":
+        # the run-time kernel (no static_terms) on the same lanes, held
+        # against the same plain outputs and timed
+        gkw = dict(kw, static_terms=None)
+        ggot = _flat(kernel)(*args, **gkw)
+        _sync()
+        generic = {"instances": _hybrid_instances(kernel, args, gkw),
+                   "max_abs_err": check_prefix(name + "[generic]", want,
+                                               ggot),
+                   "ms": _events_ms(lambda: kernel(*args, **gkw), 5),
+                   "plain_ms": res["plain_ms"], "bytes": res["bytes"],
+                   "bound_ms": res["bound_ms"],
+                   "int64_lanes": int(kernel.wide_lanes)}
+        res["generic"] = generic
     print(json.dumps({"phase": f"encode_{name}_kernel_vs_plain", **res}))
     return got, res
+
+
+def _hybrid_instances(kernel, args, kw) -> dict:
+    """The hybrid kernel instantiations one launch on `args` runs, by the
+    wrapper's per-instance counts."""
+    before = dict(kernel.chain_launches)
+    kernel(*args, **kw)
+    _sync()
+    return {k: v - before[k] for k, v in kernel.chain_launches.items()
+            if v != before[k]}
 
 
 def stage_variant(pcm, dev, **options):
@@ -1738,27 +1782,48 @@ def submit_variants(pool, dev):
     mono = small_file("mono")[0][:ENC_SLICE_BLOCKS * ENC_BLOCK]
     kernels = _enc_kernels()
     jobs = []
-    for name, kind, pcm, options in (
+    # each hybrid variant with the kernel it must run: its preset's chain
+    # (ops/decorr_cuda.py::CHAINS), or the run-time kernel when the launch
+    # names no chain
+    hyb = dict(hybrid=True, bitrate=ENC_BITRATE)
+    for name, kind, pcm, options, runs in (
             ("hybrid_balance", "hybrid", head,
-             dict(hybrid=True, bitrate=ENC_BITRATE, hybrid_balance=True)),
+             dict(hyb, hybrid_balance=True), "default"),
             ("hybrid_no_bitrate", "hybrid", head,
-             dict(hybrid=True, bitrate=ENC_BITRATE, hybrid_bitrate=False)),
-            ("hybrid_mono", "hybrid", mono,
-             dict(hybrid=True, bitrate=ENC_BITRATE)),
-            ("invert_mono", "invert", mono, {}),
-            ("invert_high", "invert", head, dict(preset="high"))):
+             dict(hyb, hybrid_bitrate=False), "default"),
+            ("hybrid_mono", "hybrid", mono, hyb, "default_mono"),
+            ("hybrid_fast", "hybrid", head, dict(hyb, preset="fast"),
+             "fast"),
+            ("hybrid_high", "hybrid", head, dict(hyb, preset="high"),
+             "high"),
+            ("hybrid_fast_mono", "hybrid", mono, dict(hyb, preset="fast"),
+             "fast_mono"),
+            ("hybrid_high_mono", "hybrid", mono, dict(hyb, preset="high"),
+             "high_mono"),
+            ("hybrid_generic", "hybrid", head, hyb, "generic"),
+            ("invert_mono", "invert", mono, {}, None),
+            ("invert_high", "invert", head, dict(preset="high"), None)):
         lanes = stage_variant(pcm, dev, **options)
         args, kw, need, out_need = _enc_launches(lanes, kind)
+        if runs == "generic":
+            kw = dict(kw, static_terms=None)
         got = _flat(kernels[kind][0])(*args, **kw)
         _sync()
+        info = {}
         if kind != "invert":
             out_need = _payload_need(out_need, kernels[kind][0](*args, **kw))
+            info["instances"] = _hybrid_instances(kernels[kind][0], args,
+                                                  kw)
+            if info["instances"] != {runs: 1}:
+                raise AssertionError(f"encode {name}: ran "
+                                     f"{info['instances']}, expected the "
+                                     f"{runs} kernel")
         nbytes = _moved_bytes(args, got, need, out_need)
         ms = _events_ms(lambda: kernels[kind][0](*args, **kw), 5)
         arrays = [a.cpu().numpy() for a in args]
         jobs.append((name, got, ms, dict(
             lanes=len(lanes.starts), profile=kw, bytes=nbytes,
-            bound_ms=1000 * nbytes / HBM_BYTES_PER_S),
+            bound_ms=1000 * nbytes / HBM_BYTES_PER_S, **info),
                      pool.submit(plain_encode_kernel, kind, arrays, kw)))
     return jobs
 
@@ -1780,25 +1845,107 @@ def check_variants(jobs):
                       "results": out}))
 
 
+# the encode edge lanes (testgen/edge.py::encode_edge_lanes): each kind
+# with the coder's profiles, HYBRID_BALANCE on stereo only
+ENC_EDGE_CASES = (("words", None), ("words_mono", None),
+                  ("hybrid", (False, False)), ("hybrid", (True, False)),
+                  ("hybrid", (True, True)), ("hybrid_mono", (False, False)),
+                  ("hybrid_mono", (True, False)))
+ENC_EDGE_SEED = 17
+
+
+def _edge_kw(kind, flags):
+    kw = dict(mono=kind.endswith("_mono"))
+    if flags is not None:
+        kw.update(hybrid_bitrate=flags[0], hybrid_balance=flags[1])
+    return kw
+
+
+def plain_encode_edge(kind, flags):
+    """A word coder's plain version on the encode edge lanes of `kind`;
+    its outputs as numpy arrays. Runs in a worker process."""
+    from wvpk_torch.ops.encode_cuda import encode_words_plain, \
+        hybrid_encode_plain
+    from wvpk_torch.testgen.edge import encode_edge_lanes
+
+    torch.set_num_threads(1)
+    args = [torch.from_numpy(a)
+            for a in encode_edge_lanes(kind, EDGE_LANES, ENC_EDGE_SEED)]
+    fn = encode_words_plain if flags is None else hybrid_encode_plain
+    return [o.numpy() for o in fn(*args, **_edge_kw(kind, flags))]
+
+
+def phase_encode_edges(dev, jobs):
+    """Each word coder on the 64 encode edge lanes of each kind and
+    profile, held against its plain version, which ran in the worker pool;
+    the hybrid lanes through their chain's kernel and the run-time kernel.
+    The int64 body must run exactly the lanes int64_lanes names."""
+    from wvpk_torch.ops import encode_cuda as ec
+    from wvpk_torch.testgen.edge import ENCODE_EDGE_CHAIN, encode_edge_lanes
+
+    out = {}
+    for kind, flags in ENC_EDGE_CASES:
+        args = [torch.from_numpy(a).to(dev)
+                for a in encode_edge_lanes(kind, EDGE_LANES, ENC_EDGE_SEED)]
+        kw = _edge_kw(kind, flags)
+        if flags is None:
+            fn, med0, runs = ec.encode_words_cuda, args[1], [kw]
+        else:
+            fn, med0 = ec.hybrid_encode_cuda, args[4]
+            runs = [dict(kw, static_terms=st)
+                    for st in (ENCODE_EDGE_CHAIN, None)]
+        got = []
+        for rkw in runs:
+            before = dict(getattr(fn, "chain_launches", {}))
+            res = fn(*args, **rkw)
+            _sync()
+            ran = {k: v - before[k]
+                   for k, v in getattr(fn, "chain_launches", {}).items()
+                   if v != before[k]}
+            wide = int(fn.wide_lanes)
+            if wide != int(ec.int64_lanes(med0).sum()) or wide == 0:
+                raise AssertionError(f"encode edge {kind}: {wide} lanes in "
+                                     f"the int64 body")
+            got.append((ran, res, wide))
+        want = [torch.from_numpy(w) for w in jobs[(kind, flags)].result()]
+        name = kind + ("" if flags is None else
+                       "_" + ("bitrate" if flags[0] else "plain")
+                       + ("_balance" if flags[1] else ""))
+        for ran, g, wide in got:
+            for k, (w, x) in enumerate(zip(want, g)):
+                if not torch.equal(w, x.cpu()):
+                    raise AssertionError(f"encode edge {name} ({ran}): "
+                                         f"kernel != plain, output {k}")
+        out[name] = [{"instances": ran, "int64_lanes": wide,
+                      "max_abs_err": max(_max_abs_err(w, x.cpu())
+                                         for w, x in zip(want, g))}
+                     for ran, g, wide in got]
+    print(json.dumps({"phase": "encode_edge_lanes_vs_plain_on_cpu",
+                      "lanes": EDGE_LANES, "results": out}))
+
+
 def _enc_counts(reset=False):
     """The encode wrappers' launch counts, the invert kernel's split into
     its main and its warm (with_state) launches; with `reset` all set to
     0 first."""
     from wvpk_torch.ops import encode_cuda as ec
 
-    inv = ec.decorr_invert_cuda
+    inv, hyb = ec.decorr_invert_cuda, ec.hybrid_encode_cuda
     if reset:
         inv.launches = inv.warm_launches = 0
-        ec.encode_words_cuda.launches = ec.hybrid_encode_cuda.launches = 0
+        ec.encode_words_cuda.launches = hyb.launches = 0
+        hyb.chain_launches = dict.fromkeys(hyb.chain_launches, 0)
     return {"encode_invert": inv.launches - inv.warm_launches,
             "encode_invert[warm]": inv.warm_launches,
             "encode_words": ec.encode_words_cuda.launches,
-            "encode_hybrid": ec.hybrid_encode_cuda.launches}
+            "encode_hybrid": hyb.launches,
+            **{f"encode_hybrid:{k}": n for k, n in hyb.chain_launches.items()
+               if n}}
 
 
 def encode_e2e(name, track, dev, per_call, **options):
     """encode_device on the whole track: every launch count set to 0, one
-    warm-up and three timed calls, the counts read (each kernel must have
+    warm-up and two timed calls, the counts read (each kernel must have
     launched exactly `per_call` times a call), the last call split into
     its trace stages (enc_scan is the host's launch time; the kernels'
     device time lands in enc_fetch, the first synchronising copy).
@@ -1809,7 +1956,7 @@ def encode_e2e(name, track, dev, per_call, **options):
     _enc_counts(reset=True)
     rates = []
     wv = None
-    for rep in range(4):
+    for rep in range(ENC_CALLS):
         wv = None
         with trace.collect() as stages:
             t0 = time.perf_counter()
@@ -1820,14 +1967,16 @@ def encode_e2e(name, track, dev, per_call, **options):
         if rep > 0:
             rates.append(len(track) / dt / 1e6)
     launches = _enc_counts()
-    want = {k: 4 * per_call.get(k, 0) for k in launches}
-    if launches != want:
-        raise AssertionError(f"encode {name}: launches {launches} over 4 "
-                             f"calls, expected {want}")
+    want = {k: ENC_CALLS * per_call.get(k, 0)
+            for k in {*launches, *per_call}}
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"encode {name}: launches {launches} over "
+                             f"{ENC_CALLS} calls, expected {want}")
     return wv, {"msamples_per_s": rates, "warmup": 1, "frames": len(track),
                 "bytes": len(wv), "ratio": len(wv) / track.nbytes * 4,
                 "launches": launches,
-                "launches_per_call": {k: v / 4 for k, v in launches.items()},
+                "launches_per_call": {k: v / ENC_CALLS
+                                      for k, v in launches.items()},
                 "last_call_stage_seconds": dict(stages),
                 "last_call_s": dt}
 
@@ -1935,9 +2084,11 @@ def phase_encode(dev, pool, cpu_jobs):
     l_launches = info["launches"]
     print(json.dumps({"phase": "encode_lossless_profiled_call",
                       **profile_encode(track, dev)}))
+    # the hybrid call runs the default chain's kernel, never the run-time
+    # one
     wv, info = encode_e2e("hybrid", track, dev, {
-        "encode_invert[warm]": 1, "encode_hybrid": 1}, hybrid=True,
-        bitrate=ENC_BITRATE)
+        "encode_invert[warm]": 1, "encode_hybrid": 1,
+        "encode_hybrid:default": 1}, hybrid=True, bitrate=ENC_BITRATE)
     info.update(check_encoded(wv, dev))
     print(json.dumps({"phase": "encode_hybrid_encode_device", **info}))
     h_launches = info["launches"]
@@ -1967,7 +2118,9 @@ def phase_encode(dev, pool, cpu_jobs):
                   "encode_invert[warm]": l_launches["encode_invert[warm]"]
                   + h_launches["encode_invert[warm]"],
                   "encode_words": l_launches["encode_words"],
-                  "encode_hybrid": h_launches["encode_hybrid"]}
+                  "encode_hybrid": h_launches["encode_hybrid"],
+                  "encode_hybrid:generic": h_launches.get(
+                      "encode_hybrid:generic", 0)}
 
 
 def _small_wav(pcm, fmt):
@@ -2049,6 +2202,34 @@ def ptxas_table(log: str) -> list[dict]:
     return rows
 
 
+def print_build(phase, names, seconds):
+    """The build phase's line for the sources `names`: nvcc's seconds
+    (from the start of the build) and what ptxas said of each kernel;
+    every compiled decorrelation chain, both word coders and every hybrid
+    chain kernel must have neither stack nor spills to be in registers
+    (the run-time kernels keep their chains in local memory)."""
+    from wvpk_torch import _build
+
+    ptxas = {k: ptxas_table(_build.ptxas_log[k]) for k in names
+             if k in _build.ptxas_log}
+    line = {"phase": phase, "seconds": seconds,
+            "nvcc_seconds": {k: v for k, v in _build.build_seconds.items()
+                             if k in names}}
+    for key, src, prefixes in (
+            ("decorr_chain", ("decorr",), ("decorr_chain",)),
+            ("encode_coder", ("encode_words", "encode_hybrid"),
+             ("words_kernel", "hybrid_chain"))):
+        rows = [r for k in src for r in ptxas.get(k, [])
+                if r["kernel"].startswith(prefixes)]
+        if rows:
+            line[f"{key}_kernels"] = len(rows)
+            line[f"{key}s_without_stack_or_spills"] = all(
+                r.get("stack") == 0 and r.get("spill_stores") == 0
+                for r in rows)
+    line["ptxas"] = ptxas
+    print(json.dumps(line))
+
+
 def _wav(pcm, bits, nbytes, fmt_tag=1, body=None):
     from wvpk_torch.io.wav import make_wav_header
 
@@ -2064,6 +2245,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     import multiprocessing
+    import threading
     from concurrent.futures import ProcessPoolExecutor
 
     from wvpk_torch import _build
@@ -2075,19 +2257,28 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
 
+    # the hybrid encode source builds longest (a kernel per chain and
+    # profile) and the encode phase is the first to need it: its nvcc runs
+    # beside the decode phases and is joined before that phase
+    late, late_errors = ("encode_hybrid",), []
+
+    def build_late():
+        try:
+            _build.build_all(late)
+        except Exception as e:  # re-raised by the main thread at the join
+            late_errors.append(e)
+
+    late_build = threading.Thread(target=build_late)
     t0 = time.perf_counter()
-    _build.build_all()
-    build_s = time.perf_counter() - t0
-    ptxas = {k: ptxas_table(v) for k, v in _build.ptxas_log.items()}
-    chains = [r for r in ptxas.get("decorr", [])
-              if r["kernel"].startswith("decorr_chain")]
-    print(json.dumps({"phase": "build", "seconds": build_s,
-                      "nvcc_seconds": _build.build_seconds,
-                      "decorr_chain_kernels": len(chains),
-                      "decorr_chains_without_stack_or_spills": all(
-                          r.get("stack") == 0 and r.get("spill_stores") == 0
-                          for r in chains) if chains else None,
-                      "ptxas": ptxas}))
+    marks = {}    # seconds since the build started, at the end of each part
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t0
+
+    late_build.start()
+    _build.build_all([n for n in _build.SOURCES if n not in late])
+    print_build("build", [n for n in _build.SOURCES if n not in late],
+                time.perf_counter() - t0)
 
     # the wvx and DSD files, the CPU encodes of the encode phase's small
     # files and its plain variant runs go to worker processes while the
@@ -2110,21 +2301,38 @@ def main() -> int:
                          for p in DSD_EDGE_PROFILES}
         cpu_encodes = {name: pool.submit(cpu_encode, name)
                        for name in ENC_SMALL}
+        mark("start")
         lossless, l_launches, (l_files, l_pcms) = phase_lossless(dev)
         l_file, l_pcm = l_files[0], l_pcms[0]
         phase_entropy_edges(dev, edge_jobs)
+        mark("lossless")
         mixed, m_launches = phase_mixed(dev, mixed_futures)
+        mark("mixed")
         hybrid, h_launches = phase_hybrid(dev)
         wvc, c_launches, ((c_wv, c_wvc), c_pcm) = phase_wvc(dev)
+        mark("hybrid_wvc")
         wvx, x_launches, (f_file, f_pcm, f_exp) = phase_float_wvx(
             dev, wvx_futures)
+        mark("float_wvx")
         dsd_checks, d_launches, (d_wv, d_src) = phase_dsd(
             dev, pool, dsd_jobs, (l_files, l_pcms))
         phase_dsd_edges(dev, dsd_edge_jobs)
+        mark("dsd")
+        late_build.join()
+        if late_errors:
+            raise late_errors[0]
+        print_build("build_encode_hybrid", late, time.perf_counter() - t0)
+        # the encode edge lanes' plain versions queue behind the decode
+        # phases' work, which the card waits for
+        enc_edge_jobs = {case: pool.submit(plain_encode_edge, *case)
+                         for case in ENC_EDGE_CASES}
         enc, e_launches = phase_encode(dev, pool, cpu_encodes)
+        mark("encode")
+        phase_encode_edges(dev, enc_edge_jobs)
         # the DSD kernels against their plain versions, which ran in the
         # worker pool meanwhile
         dsd = {name: check() for name, check in dsd_checks.items()}
+        mark("encode_edges_dsd_checks")
 
     from wvpk_torch.io.pcm import format_samples
 
@@ -2145,6 +2353,8 @@ def main() -> int:
         dev)
     raw_s = run_cli({"dsd_high": (d_wv, None, d_src.tobytes())}, dev,
                     raw=True)
+    mark("cli")
+    print(json.dumps({"phase": "timeline", "seconds_since_start": marks}))
     print(json.dumps({"phase": "cli", "files": 3 + len(wavs),
                       "byte_exact": True, "seconds": cli_s,
                       "dsd_raw_byte_exact": True, "dsd_raw_seconds": raw_s,
@@ -2188,10 +2398,13 @@ def main() -> int:
          e_launches["encode_words"], enc["words"]),
         ("encode_hybrid", "encode_hybrid.cu", "encode_pallas.py:566",
          e_launches["encode_hybrid"], enc["hybrid"]),
+        ("encode_hybrid[generic]", "encode_hybrid.cu", "encode_pallas.py:566",
+         e_launches["encode_hybrid:generic"], enc["hybrid"]["generic"]),
     ]
     # no PyTorch or CUDA library call computes these coders: library_ms is
     # null; the bound is the bytes moved (integer work only)
-    # dsd_high's rows also give the lanes its int64 body ran
+    # dsd_high's and the word coders' rows also give the lanes their int64
+    # body ran
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"wvpk_torch/csrc/{src}",
          "replaces": f"wvpk/ops/{rep}", "launches": n,

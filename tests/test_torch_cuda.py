@@ -38,7 +38,8 @@ from wvpk_torch.ref import decode_block
 from wvpk_torch.testgen import EncodeSpec, encode_dsd_file, encode_file, \
     encode_multichannel
 from wvpk_torch.testgen.edge import DSD_EDGE_PROFILES, EDGE_PROFILES, \
-    dsd_edge_states, edge_states
+    ENCODE_EDGE_CHAIN, ENCODE_EDGE_KINDS, dsd_edge_states, \
+    encode_edge_lanes, edge_states
 from wvpk_torch.testgen.encoder import encode_blocks
 
 pytestmark = pytest.mark.cuda
@@ -714,14 +715,23 @@ def _residual_words(rng, kind, W, L):
     return np.asarray(r, np.int64).astype(np.int32)
 
 
+# the int32 body's limits: 2^31 - 1 (the largest staged median it takes;
+# an increase wraps it) and values past int32, which the int64 body codes
+MEDIAN_LIMITS = ((1 << 31) - 1, 1 << 31, 1 << 33, 1 << 40)
+
+
+@pytest.mark.parametrize("medians", ["usual", "limits"])
 @pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
 @pytest.mark.parametrize("kind", ["normal", "runs", "escapes", "huge"])
-def test_encode_words_kernel_matches_plain(cuda, kind, mono):
+def test_encode_words_kernel_matches_plain(cuda, kind, mono, medians):
     """The payload and bit totals of the words kernel against the plain
     scan packed with its final flush: zero runs, LIMIT_ONES escapes,
-    medians from 0 to 2^18, short and empty lanes; 240 lanes."""
+    medians from 0 to 2^18 ("usual") and, in one lane in two, a median at
+    the 32-bit body's limit or past it ("limits"; those lanes take the
+    int64 body, as int64_lanes counts), short and empty lanes; 240
+    lanes."""
     from wvpk_torch.ops.encode_cuda import encode_words_cuda, \
-        encode_words_plain
+        encode_words_plain, int64_lanes
 
     rng = np.random.default_rng(50 + 2 * len(kind) + mono)
     W, L = 200, 240
@@ -731,6 +741,10 @@ def test_encode_words_kernel_matches_plain(cuda, kind, mono):
         base = [0, 1, 3, 9, 1 << 18][i % 5]
         for c in range(1 if mono else 2):
             med0[i, c] = sorted(rng.integers(base, base * 4 + 4, 3))
+    if medians == "limits":
+        for i in range(0, L, 2):
+            c = 0 if mono else (i // 2) % 2
+            med0[i, c, (i // 4) % 3] = MEDIAN_LIMITS[(i // 2) % 4]
     nvals = rng.integers(0, W + 1, L).astype(np.int32)
     nvals[:4] = (W, W - 1, 3, 0)
     args = _on(cuda, res, med0, nvals)
@@ -739,27 +753,76 @@ def test_encode_words_kernel_matches_plain(cuda, kind, mono):
     torch.cuda.synchronize()
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+    wide = int(int64_lanes(args[1]).sum())
+    assert int(encode_words_cuda.wide_lanes) == wide
+    assert (wide > 0) == (medians == "limits")
+
+
+def test_encode_words_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    """The words kernel takes int32 words (W, L), int64 medians (L, 2, 3)
+    and word counts (L,), all on the card: anything else is refused before
+    a launch. Medians past int32 are taken (the int64 body)."""
+    from wvpk_torch.ops.encode_cuda import encode_words_cuda
+
+    rng = np.random.default_rng(59)
+    res, med0, nvals = _on(cuda, _residual_words(rng, "normal", 16, 8),
+                           np.zeros((8, 2, 3), np.int64),
+                           np.full(8, 16, np.int32))
+    before = encode_words_cuda.launches
+    for bad in ((res.to(torch.int64), med0, nvals),
+                (res, med0.to(torch.int32), nvals),
+                (res, med0[:, :1].contiguous(), nvals),
+                (res, med0, nvals[:4]),
+                (res.t(), med0, nvals),
+                (res.cpu(), med0, nvals)):
+        with pytest.raises(ValueError):
+            encode_words_cuda(*bad, mono=False)
+    assert encode_words_cuda.launches == before
+    encode_words_cuda(res, med0 + (1 << 40), nvals, mono=False)
+    assert int(encode_words_cuda.wide_lanes) == 8
 
 
 HYBRID_PROFILES = {"plain": (False, False), "bitrate": (True, False),
                    "bitrate_balance": (True, True)}
 
 
+# the chains of the hybrid kernel test: "random" (a chain a lane, the
+# run-time kernel), each compiled chain with static_terms, and one chain
+# outside CHAINS named by static_terms (the run-time kernel)
+HYBRID_CHAINS = ["random"] + [name for name, _m, _t in CHAINS] + ["outside"]
+_OUTSIDE = {False: (5, 1, -3, 17), True: (5, 1, 17)}
+
+
+@pytest.mark.parametrize("chain", HYBRID_CHAINS)
 @pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
 @pytest.mark.parametrize("profile", sorted(HYBRID_PROFILES))
-def test_encode_hybrid_kernel_matches_plain(cuda, profile, mono):
+def test_encode_hybrid_kernel_matches_plain(cuda, profile, mono, chain):
     """Payload, bit totals and reconstruction of the fused hybrid kernel
-    against the plain scan packed: random chains and seeds, silent
-    stretches (the run gate), error limits from 0 up; 200 lanes."""
+    against the plain scan packed: random chains and seeds ("random"), or
+    every lane on one chain given as static_terms (each of CHAINS of the
+    test's channel count: its compiled kernel; "outside": the run-time
+    kernel), silent stretches (the run gate), error limits from 0 up;
+    200 lanes. The launch counts the kernel that ran."""
     from wvpk_torch.ops.encode_cuda import hybrid_encode_cuda, \
         hybrid_encode_plain
 
+    named = {n: (m, t) for n, m, t in CHAINS}
+    if chain in named and named[chain][0] != mono:
+        pytest.skip(f"{chain} is a chain of the other channel count")
     bitrate, balance = HYBRID_PROFILES[profile]
     rng = np.random.default_rng(60 + 2 * len(profile) + mono)
     T, L, C = 90, 200, 1 if mono else 2
     targ = rng.integers(-2**15, 2**15, (T, L, C)).astype(np.int32)
     targ[:20, ::3] = 0
     terms, deltas, nt = _chains(rng, L, mono, most=8)
+    static = None
+    if chain != "random":
+        static = named[chain][1] if chain in named else _OUTSIDE[mono]
+        terms[:] = 0
+        terms[:, :len(static)] = static
+        deltas[:, len(static):] = 0
+        deltas[:, :len(static)] = rng.integers(0, 8, (L, len(static)))
+        nt[:] = len(static)
     med0 = np.zeros((L, 2, 3), np.int64)
     for i in range(L):
         for c in range(2):
@@ -772,11 +835,53 @@ def test_encode_hybrid_kernel_matches_plain(cuda, profile, mono):
     args = _on(cuda, targ, terms, deltas, nt, med0, slow0, acc0, delta0,
                nvals, *_seeds(rng, L))
     kw = dict(mono=mono, hybrid_bitrate=bitrate, hybrid_balance=balance)
-    got = hybrid_encode_cuda(*args, **kw)
+    ran = chain if chain in named else "generic_mono" if mono else "generic"
+    before = dict(hybrid_encode_cuda.chain_launches)
+    got = hybrid_encode_cuda(*args, static_terms=static, **kw)
     want = hybrid_encode_plain(*args, **kw)
     torch.cuda.synchronize()
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+    assert {k: v - before[k] for k, v in
+            hybrid_encode_cuda.chain_launches.items() if v != before[k]} \
+        == {ran: 1}
+
+
+@pytest.mark.parametrize("profile", sorted(HYBRID_PROFILES))
+@pytest.mark.parametrize("kind", ENCODE_EDGE_KINDS)
+def test_encode_kernels_edge_lanes_match_plain(cuda, kind, profile):
+    """The 64 encode edge lanes of each kind (testgen/edge.py::
+    encode_edge_lanes: residuals at INT32_MIN/MAX, zero runs across the
+    staging tiles and to the lane's end, escapes with gammas past 32
+    bits, medians at and past the 32-bit body's limits, error limits of
+    0, negative and above any interval, 32-step searches, both balance
+    clamps) through each word coder, exact against its plain version; the
+    hybrid lanes through their chain's kernel (static_terms) and the
+    run-time kernel; the lanes of the int64 body counted."""
+    from wvpk_torch.ops.encode_cuda import encode_words_cuda, \
+        encode_words_plain, hybrid_encode_cuda, hybrid_encode_plain, \
+        int64_lanes
+
+    mono = kind.endswith("_mono")
+    args = _on(cuda, *encode_edge_lanes(kind, 64, seed=7))
+    if kind.startswith("words"):
+        if profile != "plain":
+            pytest.skip("the word coder has no hybrid profile")
+        runs = [(encode_words_cuda, encode_words_plain(*args, mono=mono),
+                 dict(mono=mono), args[1])]
+    else:
+        bitrate, balance = HYBRID_PROFILES[profile]
+        kw = dict(mono=mono, hybrid_bitrate=bitrate, hybrid_balance=balance)
+        want = hybrid_encode_plain(*args, **kw)
+        runs = [(hybrid_encode_cuda, want, dict(kw, static_terms=st), args[4])
+                for st in (ENCODE_EDGE_CHAIN, None)]
+    for fn, want, kw, med0 in runs:
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        for w, g in zip(want, got):
+            assert torch.equal(w, g)
+        wide = int(int64_lanes(med0).sum())
+        assert wide > 0 and int(fn.wide_lanes) == wide
 
 
 def _wide_pcm(n, seed):

@@ -7,6 +7,8 @@ The port's slot layout (five slots a step, ops/encode_kernels.py) is
 converted to wvpk's segments (segment A as two uint64 halves, segment B)
 here, in numpy."""
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -19,13 +21,15 @@ from wvpk.ops.encode_kernels import hybrid_encode_scan as jax_hybrid
 from wvpk.testgen.encoder import _crc_fast
 from wvpk_torch.ops.encode_cuda import decorr_invert_cuda, \
     encode_words_cuda, encode_words_plain, hybrid_encode_cuda, \
-    hybrid_encode_plain
+    hybrid_encode_plain, int64_lanes
 from wvpk_torch.ops.encode_kernels import decorr_invert_warm, \
     entropy_encode_words, hybrid_encode_scan
 from wvpk_torch.ops.encode_pack import finish_crc, hybrid_crc_acc, \
     pack_segments_device, payload_bytes, segment_total_bits
 from wvpk_torch.ops.encode_select import hybrid_scan_any, invert_any, \
     words_any
+from wvpk_torch.tables import LOG2_TABLE, exp2s
+from wvpk_torch.testgen.edge import ENCODE_EDGE_CHAIN, encode_edge_lanes
 
 # tests/test_encode_pallas.py's chains
 CHAINS = [
@@ -310,3 +314,305 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             mono=False, hybrid_bitrate=True, hybrid_balance=False)
     with pytest.raises(ValueError, match="CUDA"):
         call()
+
+
+# ---------------------------------------------------------------------------
+# encode edge lanes (testgen/edge.py::encode_edge_lanes)
+# ---------------------------------------------------------------------------
+
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _wrap(x):
+    return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _mylog2(av):
+    """mylog2 on any int64 value, as the coders take it."""
+    av += av >> 9
+    d = av.bit_length() if av > 0 else 0
+    return (d << 8) + LOG2_TABLE[(av >> (d - 9) if d >= 9 else av << (9 - d))
+                                 & 0xFF]
+
+
+class _Branches:
+    """A scalar walk of one lane's word coder (WordsUtils.cs:272-511 run
+    forward, and the hybrid error limit and search), counting the branches
+    the encode edge lanes must reach."""
+
+    def __init__(self, counts, med0, mono):
+        self.n = counts
+        self.mono = mono
+        self.med = [[int(x) for x in med0[c]] for c in range(2)]
+        self.pvalid, self.poc = False, 0
+        flat = [x for m in self.med for x in m]
+        self.n["int64_body"] += any(x != _wrap(x) for x in flat)
+        self.n["median_zero"] += any(x == 0 for x in flat)
+        self.n["median_max32"] += any(x == I32_MAX for x in flat)
+
+    def tiny(self):
+        return not self.pvalid and (self.med[0][0] & ~1) == 0 \
+            and (self.med[1][0] & ~1) == 0
+
+    def coded(self, c, r):
+        """A coded word of channel c: its ones count and its interval's
+        (low, width); the medians and the holding state move on."""
+        self.n["int32_extreme"] += r in (I32_MIN, I32_MAX)
+        av = ~r if r < 0 else r
+        m = self.med[c]
+        g0, g1 = (m[0] >> 4) + 1, (m[1] >> 4) + 1
+        g2 = max((m[2] >> 4) + 1, 1)
+        if av < g0:
+            oc, low, width = 0, 0, g0
+        elif av < g0 + g1:
+            oc, low, width = 1, g0, g1
+        else:
+            q = (av - g0 - g1) // g2
+            oc, low, width = 2 + q, g0 + g1 + q * g2, g2
+            self.n[f"quotient_{min(q, 4)}"] += 1
+            self.n["quotient_escape"] += oc >= 8
+        new = [m[0] - ((m[0] + 126) >> 7) * 2 if oc == 0
+               else m[0] + ((m[0] + 128) >> 7) * 5,
+               m[1] if oc == 0 else m[1] - ((m[1] + 62) >> 6) * 2 if oc == 1
+               else m[1] + ((m[1] + 64) >> 6) * 5,
+               m[2] if oc < 2 else m[2] - ((m[2] + 30) >> 5) * 2 if oc == 2
+               else m[2] + ((m[2] + 32) >> 5) * 5]
+        self.n["median_wraps"] += any(x != _wrap(x) for x in new)
+        self.med[c] = [_wrap(x) for x in new]
+        if self.pvalid:
+            self.flush(2 * self.poc + (oc != 0))
+        self.poc = oc - 1 if self.pvalid else oc
+        self.pvalid = not (self.pvalid and oc == 0)
+        return oc, low, width
+
+    def flush(self, raw):
+        if raw >= 16:
+            self.n["escape"] += 1
+            self.n["escape_gamma_over_32_bits"] += raw - 16 >= 1 << 16
+
+    def finish(self):
+        if self.pvalid:
+            self.flush(2 * self.poc)
+
+
+def _lane_counts(n, nv, W, mono):
+    n["nvals_zero"] += nv == 0
+    n["nvals_odd"] += nv % 2 == 1
+    n["nvals_full"] += nv == W
+
+
+def words_branches(res, med0, nvals, mono):
+    n = Counter()
+    W, L = res.shape
+    for lane in range(L):
+        nv = min(max(int(nvals[lane]), 0), W)
+        _lane_counts(n, nv, W, mono)
+        s = _Branches(n, med0[lane], mono)
+        col = [int(x) for x in res[:, lane]]
+        zacc = 0
+        for w in range(nv):
+            c = 0 if mono else w & 1
+            if s.tiny():
+                if zacc > 0:
+                    zacc -= 1
+                    if zacc > 0:
+                        continue
+                else:
+                    z = 0
+                    while w + z < nv and col[w + z] == 0:
+                        z += 1
+                    if z > 0:
+                        n["run"] += 1
+                        n["run_starts_on_b"] += c == 1
+                        n["run_crosses_tile"] += w // 32 != (w + z - 1) // 32
+                        n["run_to_end"] += w + z == nv
+                        zacc = z
+                        s.med = [[0] * 3, [0] * 3]
+                        continue
+            s.coded(c, col[w])
+        s.finish()
+    return n
+
+
+def _exp2s(log):
+    return exp2s(log) if abs(log) < (40 << 8) else 0
+
+
+def hybrid_branches(args, mono, bitrate, balance):
+    """The branch counts of the hybrid edge lanes whose chain is the
+    identity (zero weights and deltas: residual = target)."""
+    (targ, _t, deltas, _nt, med0, slow0, acc0, delta0, nvals,
+     w0a, *_rest) = args
+    n = Counter()
+    T, L, C = targ.shape
+    for lane in range(L):
+        if deltas[lane].any() or w0a[lane].any():
+            continue
+        nv = int(nvals[lane])
+        _lane_counts(n, nv, T * C, mono)
+        s = _Branches(n, med0[lane], mono)
+        slow = [int(x) for x in slow0[lane]]
+        acc = [int(x) for x in acc0[lane]]
+        err = [0, 0]
+        for t in range(T):
+            for c in range(C):
+                if t * C + c >= nv:
+                    continue
+                n["run_gate"] += s.tiny()
+                if c == 0:
+                    acc = [a + int(d) for a, d in zip(acc, delta0[lane])]
+                    br = [_wrap(a >> 16) for a in acc][:C]
+                    slog = [(x + 128) >> 8 for x in slow]
+                    if bitrate and balance and not mono:
+                        bal = (slog[1] - slog[0] + br[1] + 1) >> 1
+                        n["balance_hi"] += bal > br[0]
+                        n["balance_lo"] += -bal > br[0]
+                        br = [0, br[0] * 2] if bal > br[0] else \
+                            [br[0] * 2, 0] if -bal > br[0] else \
+                            [br[0] - bal, br[0] + bal]
+                    for k in range(C):
+                        e = slog[k] - br[k] + 0x100 if bitrate else br[k]
+                        if bitrate and e <= 0:
+                            n["slow_log_low"] += 1
+                            err[k] = 0
+                            continue
+                        n["exp2s_shift_over_9"] += abs(e) >> 8 > 9
+                        err[k] = _exp2s(e)
+                r = int(targ[t, lane, c])
+                oc, low, width = s.coded(c, r)
+                av = ~r if r < 0 else r
+                e = err[c]
+                lo, hi = low, low + width - 1
+                if e == 0:
+                    n["limit_zero"] += 1
+                    mid = av
+                else:
+                    n["limit_negative"] += e < 0
+                    n["limit_above_interval"] += 0 < hi - lo <= e
+                    steps = 0
+                    mid = (hi + lo + 1) >> 1
+                    while steps < 32 and hi - lo > e:
+                        if av >= mid:
+                            lo = mid
+                        else:
+                            hi = mid - 1
+                        mid = (hi + lo + 1) >> 1
+                        steps += 1
+                    n["search_32_steps"] += steps == 32
+                if bitrate:
+                    slow[c] = slow[c] - ((slow[c] + 128) >> 8) + _mylog2(mid)
+        s.finish()
+    return n
+
+
+_WORD_BRANCHES = ("nvals_zero", "nvals_odd", "nvals_full", "int32_extreme",
+                  "median_zero", "median_max32", "median_wraps",
+                  "int64_body", "quotient_0", "quotient_1", "quotient_2",
+                  "quotient_3", "quotient_escape", "escape",
+                  "escape_gamma_over_32_bits")
+EDGE_CASES = {
+    "words": (None, _WORD_BRANCHES + (
+        "run", "run_starts_on_b", "run_crosses_tile", "run_to_end")),
+    "words_mono": (None, _WORD_BRANCHES + (
+        "run", "run_crosses_tile", "run_to_end")),
+    "hybrid_plain": ((False, False), _WORD_BRANCHES + (
+        "run_gate", "limit_zero", "limit_negative", "limit_above_interval",
+        "search_32_steps", "exp2s_shift_over_9")),
+    "hybrid_bitrate": ((True, False), _WORD_BRANCHES + (
+        "run_gate", "limit_above_interval", "slow_log_low",
+        "exp2s_shift_over_9")),
+    "hybrid_bitrate_balance": ((True, True), _WORD_BRANCHES + (
+        "run_gate", "limit_above_interval", "slow_log_low", "balance_hi",
+        "balance_lo")),
+    "hybrid_mono_plain": ((False, False), _WORD_BRANCHES + (
+        "run_gate", "limit_zero", "limit_negative", "limit_above_interval",
+        "search_32_steps")),
+    "hybrid_mono_bitrate": ((True, False), _WORD_BRANCHES + (
+        "run_gate", "limit_above_interval", "slow_log_low")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_encode_edge_lanes_plain_matches_xla(case):
+    """The port's plain word coders against wvpk's XLA scans on the 64
+    encode edge lanes of each kind (and hybrid profile), exact, with a
+    scalar walk of the lanes counting every branch the lanes must reach:
+    residuals at INT32_MIN/MAX, zero runs from a stereo pair's second
+    word, across the 32-word staging tiles and to the lane's end, escapes
+    whose gamma passes 32 bits, medians at 0, at 2^31 - 1, wrapping and
+    past int32, quotients 0-3 and escape-sized, error limits of 0,
+    negative and above the interval, 32-step searches, both balance
+    clamps, slow_log - br <= -0x100, exp2s shifts past 9, word counts of
+    0, odd and full."""
+    flags, need = EDGE_CASES[case]
+    kind = case if flags is None else (
+        "hybrid_mono" if case.startswith("hybrid_mono") else "hybrid")
+    mono = kind.endswith("_mono")
+    args = encode_edge_lanes(kind, 64, seed=5)
+    if flags is None:
+        want = jax_words(*args, mono=mono)
+        got = entropy_encode_words(*tt(*args), mono=mono)
+        assert_segments(want, got, case)
+        counts = words_branches(*args, mono)
+    else:
+        kw = dict(mono=mono, hybrid_bitrate=flags[0], hybrid_balance=flags[1])
+        want = jax_hybrid(*args, **kw)
+        got = hybrid_encode_scan(*tt(*args), **kw)
+        assert_segments(want[:9], got[:6], case)
+        np.testing.assert_array_equal(np.asarray(want[9]), got[6].numpy())
+        assert (args[1][:, :len(ENCODE_EDGE_CHAIN)] == ENCODE_EDGE_CHAIN).all()
+        counts = hybrid_branches(args, mono, *flags)
+    missing = [b for b in need if counts[b] == 0]
+    assert not missing, f"{case}: branches not reached: {missing} ({counts})"
+
+
+@pytest.mark.parametrize("static_terms", [(18, 17, 2), (5, 1), ()],
+                         ids=["table_chain", "outside", "empty"])
+def test_hybrid_plain_takes_and_ignores_static_terms(static_terms):
+    """static_terms picks a kernel on the card and changes no result: the
+    CPU path (hybrid_scan_any -> hybrid_encode_plain) gives the same
+    outputs with and without it."""
+    args = tt(*hybrid_inputs(12, (18, 17, 2), False, T=30, L=3))
+    kw = dict(mono=False, hybrid_bitrate=True, hybrid_balance=False)
+    want = hybrid_encode_plain(*args, **kw)
+    for fn in (hybrid_encode_plain, hybrid_scan_any):
+        for a, b in zip(fn(*args, static_terms=static_terms, **kw), want):
+            assert torch.equal(a, b)
+
+
+def test_int64_lanes_names_medians_past_int32():
+    """The lanes the word coders run with int64 medians: those with a
+    median outside int32, in either channel; 2^31 - 1 and -2^31 stay in
+    the 32-bit body."""
+    med0 = np.zeros((6, 2, 3), np.int64)
+    med0[1, 0, 0] = (1 << 31) - 1
+    med0[2, 1, 2] = 1 << 31
+    med0[3, 0, 1] = -(1 << 31)
+    med0[4, 1, 0] = -(1 << 31) - 1
+    med0[5, 0, 2] = 1 << 40
+    got = int64_lanes(torch.from_numpy(med0)).tolist()
+    assert got == [False, False, True, False, True, True]
+
+
+@pytest.mark.parametrize("preset,mono", [("default", False), ("fast", True),
+                                         ("high", False)])
+def test_scan_lanes_names_the_spec_chain(monkeypatch, preset, mono):
+    """The device encoder hands the hybrid scan its spec's chain as
+    static_terms (every lane carries it), as wvpk's device encoder does."""
+    from wvpk_torch.encode import build_spec
+    from wvpk_torch.engine import device_encoder as de
+
+    seen = []
+
+    def spy(*args, static_terms=None, **kw):
+        seen.append(static_terms)
+        return hybrid_scan_any(*args, static_terms=static_terms, **kw)
+
+    monkeypatch.setattr(de, "hybrid_scan_any", spy)
+    rng = np.random.default_rng(13)
+    pcm = np.round(rng.normal(0, 900, (700, 1 if mono else 2))).astype(
+        np.int64)
+    spec = build_spec(pcm, block_samples=256, hybrid=True, bitrate=400,
+                      preset=preset)
+    de.scan_lanes(de.stage_lanes(pcm, spec, 64, torch.device("cpu")))
+    assert seen == [tuple(spec.terms)] and len(spec.terms) > 0

@@ -32,7 +32,8 @@
 //
 // Design:
 // - One kernel for each chain of a table (decorr_chain, the WVPK_CHAIN
-//   lines below; ops/decorr_cuda.py::CHAINS names the same list): the
+//   lines of decorr_pass.cuh, ChainState there; ops/decorr_cuda.py::CHAINS
+//   names the same list): the
 //   chain's terms are template arguments and the time loop is unrolled by
 //   8, so the ring slot m = t & 7, every pass index and every ring index
 //   are constants. The weights and the 8-deep rings then live in
@@ -43,10 +44,10 @@
 // - The generic kernel (decorr_generic) takes each lane's chain at run
 //   time from per-thread arrays in local memory; it serves every other
 //   chain and the mixed tail of a bucket.
-// - Residuals (and, for wvc, corrections) are staged ahead: each thread
-//   copies its lane's next 32 steps into a double-buffered ring in shared
-//   memory with cp.async while it computes the current 32, so a step reads
-//   shared memory instead of waiting on device memory.
+// - Residuals (and, for wvc, corrections) are staged ahead (stage.cuh):
+//   each thread copies its lane's next 32 steps into a double-buffered
+//   ring in shared memory with cp.async while it computes the current 32,
+//   so a step reads shared memory instead of waiting on device memory.
 // - The wrapper splits a bucket into lane runs by chain (staging's
 //   chain_segments) and launches each run's kernel on its lane range of
 //   the (T, L, C) arrays (a lane offset and the row stride L, no copy).
@@ -59,18 +60,18 @@
 // masks muted lanes.
 
 #include <cstdint>
-#include <utility>
 
 #include <cuda_runtime.h>
 
 #include "decorr_pass.cuh"
+#include "stage.cuh"
 
 namespace {
 
 using namespace wvpk;
 
 constexpr int THREADS = 32;
-constexpr int TILE = 32;           // steps of one staged tile
+static_assert(THREADS == STAGE_LANES, "one staging column a thread");
 
 struct Args {
   const int *res, *corr, *terms, *deltas, *wa0, *wb0, *hist_a, *hist_b,
@@ -105,135 +106,6 @@ __device__ __forceinline__ void crc_step(uint32_t& crc, int out_l,
   crc = MONO ? crc * 3u + (unsigned)out_l
              : crc * 9u + (unsigned)out_l * 3u + (unsigned)out_r;
 }
-
-// cp.async of BYTES (4 or 8) from device to shared memory, its commit and
-// the wait for every group but the newest.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(int* dst, const int* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-               "l"(src), "n"(BYTES)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// A block's staging ring: two tiles of TILE steps x THREADS lanes x C
-// values of the residuals, then as much for the corrections with WVC.
-template <bool MONO, bool WVC>
-__host__ __device__ constexpr int ring_ints() {
-  return (WVC ? 2 : 1) * 2 * TILE * THREADS * (MONO ? 1 : 2);
-}
-
-// One thread's view of the ring: its lane's values sit at column
-// threadIdx.x of each step row, and only this thread writes or reads them.
-template <bool MONO, bool WVC>
-struct Stage {
-  static constexpr int C = MONO ? 1 : 2;
-  static constexpr int ROW = THREADS * C;    // ints of one step row
-  static constexpr int BUF = TILE * ROW;     // ints of one tile
-  int* sm;
-  const int* in;
-  const int* cin;
-  size_t row;
-  int ns;
-
-  // Queue the copies of tile `k` (steps below ns) into buffer k & 1 as
-  // one commit group.
-  __device__ __forceinline__ void fetch(int k) {
-    const int t0 = k * TILE;
-    int* dst = sm + (k & 1) * BUF;
-#pragma unroll 8
-    for (int i = 0; i < TILE; ++i) {
-      if (t0 + i < ns) {
-        const size_t g = (size_t)(t0 + i) * row;
-        cp_async<4 * C>(dst + i * ROW, in + g);
-        if (WVC) cp_async<4 * C>(dst + 2 * BUF + i * ROW, cin + g);
-      }
-    }
-    cp_commit();
-  }
-
-  // Step t's residuals (corrections at + 2 * BUF); its tile has landed.
-  __device__ __forceinline__ const int* at(int t) const {
-    return sm + ((t / TILE) & 1) * BUF + (t % TILE) * ROW;
-  }
-};
-
-// The state of a chain fixed at compile time: every index below is a
-// constant once scan() has unrolled the step loop, so the arrays are
-// registers.
-template <bool MONO, int... TV>
-struct ChainState {
-  static constexpr int K = sizeof...(TV);
-  int d[K], wa[K], wb[K], ra[K][8], rb[K][8];
-
-  __device__ __forceinline__ void load(const Args& a, int lane) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int i = lane * MAX_NTERMS + k;
-      d[k] = a.deltas[i];
-      wa[k] = a.wa0[i];
-      wb[k] = MONO ? 0 : a.wb0[i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        ra[k][j] = a.hist_a[i * 8 + j];
-        rb[k][j] = MONO ? 0 : a.hist_b[i * 8 + j];
-      }
-    }
-  }
-
-  template <size_t... I>
-  __device__ __forceinline__ void passes(std::index_sequence<I...>, int m,
-                                         int& va, int& vb) {
-    if constexpr (MONO)
-      ((va = apply_mono(TV, d[I], wa[I], ra[I], m, va)), ...);
-    else
-      (apply_stereo(TV, d[I], wa[I], wb[I], ra[I], rb[I], m, va, vb), ...);
-  }
-
-  __device__ __forceinline__ void apply(int m, int& va, int& vb) {
-    passes(std::make_index_sequence<K>{}, m, va, vb);
-  }
-};
-
-// Any chain, read from the lane's arrays at run time (local memory).
-template <bool MONO>
-struct GenericState {
-  int nt;
-  int term[MAX_NTERMS], d[MAX_NTERMS], wa[MAX_NTERMS], wb[MAX_NTERMS];
-  int ra[MAX_NTERMS][8], rb[MAX_NTERMS][8];
-
-  __device__ __forceinline__ void load(const Args& a, int lane) {
-    nt = min(max(a.num_terms[lane], 0), MAX_NTERMS);
-    for (int k = 0; k < nt; ++k) {
-      const int i = lane * MAX_NTERMS + k;
-      term[k] = a.terms[i];
-      d[k] = a.deltas[i];
-      wa[k] = a.wa0[i];
-      wb[k] = MONO ? 0 : a.wb0[i];
-      for (int j = 0; j < 8; ++j) {
-        ra[k][j] = a.hist_a[i * 8 + j];
-        rb[k][j] = MONO ? 0 : a.hist_b[i * 8 + j];
-      }
-    }
-  }
-
-  __device__ __forceinline__ void apply(int m, int& va, int& vb) {
-    for (int k = 0; k < nt; ++k) {
-      if (MONO)
-        va = apply_mono(term[k], d[k], wa[k], ra[k], m, va);
-      else
-        apply_stereo(term[k], d[k], wa[k], wb[k], ra[k], rb[k], m, va, vb);
-    }
-  }
-};
 
 // One sample through the chain, the post step and the CRCs.
 template <bool MONO, bool WVC, class State>
@@ -288,11 +160,7 @@ __device__ __forceinline__ void scan(const Args& a, int lane, int* ring,
   const int ntiles = (ns + TILE - 1) / TILE;
   if (ntiles > 0) st.fetch(0);
   for (int k = 0; k < ntiles; ++k) {
-    if (k + 1 < ntiles)
-      st.fetch(k + 1);
-    else
-      cp_commit();  // an empty group: the wait below covers tile k
-    cp_wait_all_but_newest();
+    st.advance(k, ntiles);
 #pragma unroll 1
     for (int t8 = k * TILE; t8 < k * TILE + TILE; t8 += 8) {
       if (t8 + 8 <= ns) {
@@ -343,8 +211,8 @@ decorr_generic(Args a, int lane0, int lane1) {
 
 using Kernel = void (*)(Args, int, int);
 
-// The table of compiled chains: WVPK_CHAIN(id, mono, terms...). Its ids,
-// channel counts and terms are ops/decorr_cuda.py::CHAINS, in order.
+// A chain of WVPK_CHAIN_TABLE (decorr_pass.cuh; ops/decorr_cuda.py::CHAINS
+// names the same list) by its id.
 #define WVPK_CHAIN(ID, MONO_, ...)                                     \
   case ID:                                                             \
     if constexpr (MONO_ == MONO) return decorr_chain<MONO, WVC, __VA_ARGS__>; \
@@ -355,14 +223,7 @@ using Kernel = void (*)(Args, int, int);
 template <bool MONO, bool WVC>
 Kernel kernel_for(int id) {
   switch (id) {
-    WVPK_CHAIN(0, false, 18, 17, 2)
-    WVPK_CHAIN(1, false, 17, 17)
-    WVPK_CHAIN(2, false, 18, 18, 2, 17, 3)
-    WVPK_CHAIN(3, false, 18, 18, 18, -2, 2, 3, 5, -1, 17, 4)
-    WVPK_CHAIN(4, true, 18, 17, 2)
-    WVPK_CHAIN(5, true, 17, 17)
-    WVPK_CHAIN(6, true, 18, 18, 2, 17, 3)
-    WVPK_CHAIN(7, true, 18, 18, 18, 2, 3, 5, 17, 4)
+    WVPK_CHAIN_TABLE
     default:
       break;
   }

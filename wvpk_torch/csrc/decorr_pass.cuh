@@ -1,7 +1,9 @@
 // One decorrelation pass on one sample, shared by the decode kernel
 // (decorr.cu) and the encode kernels (encode_invert.cu, encode_hybrid.cu),
 // so that the state an encoder carries evolves bit for bit as the
-// decoder's will.
+// decoder's will; and a lane's whole chain of passes, fixed at compile
+// time (ChainState, one instantiation per chain of WVPK_CHAIN_TABLE) or
+// read at run time (GenericState), for the kernels that scan a lane.
 //
 // The apply is the decode direction (UnpackUtils.cs:688-1240): the
 // predictor is (w * sam + 512) >> 10 in 64 bits truncated to int32, the
@@ -16,7 +18,10 @@
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
+#include <utility>
+
 #include <cuda_runtime.h>
 
 namespace wvpk {
@@ -152,5 +157,136 @@ __device__ __forceinline__ void peel_stereo(int tv, int wa, int wb,
   vb = sub32(vb, pred(wb, sb));
   va = ia;
 }
+
+// The I-th of the terms TV...
+template <int I, int T0, int... TV>
+struct TermAt {
+  static constexpr int value = TermAt<I - 1, TV...>::value;
+};
+template <int T0, int... TV>
+struct TermAt<0, T0, TV...> {
+  static constexpr int value = T0;
+};
+
+// The state of a chain fixed at compile time, its terms TV... in pass
+// order. Every index below is a constant once the caller's step loop has
+// made the ring slot m one (decorr.cu unrolls it by 8; encode_hybrid.cu
+// switches on t & 7), so the weights and rings are registers.
+// `load` reads lane `lane`'s seeds from any struct with the (L, 16) /
+// (L, 16, 8) int32 arrays deltas, wa0, wb0, hist_a and hist_b.
+template <bool MONO, int... TV>
+struct ChainState {
+  static constexpr int K = sizeof...(TV);
+  int d[K], wa[K], wb[K], ra[K][8], rb[K][8];
+
+  template <class A>
+  __device__ __forceinline__ void load(const A& a, int lane) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = lane * MAX_NTERMS + k;
+      d[k] = a.deltas[i];
+      wa[k] = a.wa0[i];
+      wb[k] = MONO ? 0 : a.wb0[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        ra[k][j] = a.hist_a[i * 8 + j];
+        rb[k][j] = MONO ? 0 : a.hist_b[i * 8 + j];
+      }
+    }
+  }
+
+  template <size_t... I>
+  __device__ __forceinline__ void passes(std::index_sequence<I...>, int m,
+                                         int& va, int& vb) {
+    if constexpr (MONO)
+      ((va = apply_mono(TV, d[I], wa[I], ra[I], m, va)), ...);
+    else
+      (apply_stereo(TV, d[I], wa[I], wb[I], ra[I], rb[I], m, va, vb), ...);
+  }
+
+  // the passes in reverse order (K - 1 - I), reading the state
+  template <size_t... I>
+  __device__ __forceinline__ void peels(std::index_sequence<I...>, int m,
+                                        int& va, int& vb) const {
+    if constexpr (MONO)
+      ((va = peel_mono(TermAt<K - 1 - I, TV...>::value, wa[K - 1 - I],
+                       ra[K - 1 - I], m, va)),
+       ...);
+    else
+      (peel_stereo(TermAt<K - 1 - I, TV...>::value, wa[K - 1 - I],
+                   wb[K - 1 - I], ra[K - 1 - I], rb[K - 1 - I], m, va, vb),
+       ...);
+  }
+
+  // The decode direction: a sample's residuals in, its output out.
+  __device__ __forceinline__ void apply(int m, int& va, int& vb) {
+    passes(std::make_index_sequence<K>{}, m, va, vb);
+  }
+
+  // The encode direction: a sample's targets in, the residuals the chain
+  // leaves out (apply then advances the state).
+  __device__ __forceinline__ void peel(int m, int& va, int& vb) const {
+    peels(std::make_index_sequence<K>{}, m, va, vb);
+  }
+};
+
+// Any chain, read from the lane's arrays at run time (local memory); `load`
+// also reads terms and num_terms.
+template <bool MONO>
+struct GenericState {
+  int nt;
+  int term[MAX_NTERMS], d[MAX_NTERMS], wa[MAX_NTERMS], wb[MAX_NTERMS];
+  int ra[MAX_NTERMS][8], rb[MAX_NTERMS][8];
+
+  template <class A>
+  __device__ __forceinline__ void load(const A& a, int lane) {
+    nt = min(max(a.num_terms[lane], 0), MAX_NTERMS);
+    for (int k = 0; k < nt; ++k) {
+      const int i = lane * MAX_NTERMS + k;
+      term[k] = a.terms[i];
+      d[k] = a.deltas[i];
+      wa[k] = a.wa0[i];
+      wb[k] = MONO ? 0 : a.wb0[i];
+      for (int j = 0; j < 8; ++j) {
+        ra[k][j] = a.hist_a[i * 8 + j];
+        rb[k][j] = MONO ? 0 : a.hist_b[i * 8 + j];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void apply(int m, int& va, int& vb) {
+    for (int k = 0; k < nt; ++k) {
+      if (MONO)
+        va = apply_mono(term[k], d[k], wa[k], ra[k], m, va);
+      else
+        apply_stereo(term[k], d[k], wa[k], wb[k], ra[k], rb[k], m, va, vb);
+    }
+  }
+
+  __device__ __forceinline__ void peel(int m, int& va, int& vb) const {
+    for (int k = nt - 1; k >= 0; --k) {
+      if (MONO)
+        va = peel_mono(term[k], wa[k], ra[k], m, va);
+      else
+        peel_stereo(term[k], wa[k], wb[k], ra[k], rb[k], m, va, vb);
+    }
+  }
+};
+
+// The chains compiled into their own kernels: WVPK_CHAIN(id, mono,
+// terms...) lines, expanded by each kernel source that defines
+// WVPK_CHAIN (decorr.cu, encode_hybrid.cu). Their ids, channel counts and
+// terms are ops/decorr_cuda.py::CHAINS, in order (a test holds them
+// equal): the bench chain and the encoder presets, the mono chains those
+// without their cross-channel terms.
+#define WVPK_CHAIN_TABLE                                   \
+  WVPK_CHAIN(0, false, 18, 17, 2)                          \
+  WVPK_CHAIN(1, false, 17, 17)                             \
+  WVPK_CHAIN(2, false, 18, 18, 2, 17, 3)                   \
+  WVPK_CHAIN(3, false, 18, 18, 18, -2, 2, 3, 5, -1, 17, 4) \
+  WVPK_CHAIN(4, true, 18, 17, 2)                           \
+  WVPK_CHAIN(5, true, 17, 17)                              \
+  WVPK_CHAIN(6, true, 18, 18, 2, 17, 3)                    \
+  WVPK_CHAIN(7, true, 18, 18, 18, 2, 3, 5, 17, 4)
 
 }  // namespace wvpk

@@ -46,9 +46,9 @@
 //   paths read the same bits.
 // - 32-bit arithmetic where the value provably fits: the bit position
 //   (the wrapper checks W * 32 < 2^31), unary counts, code widths and the
-//   medians (med_inc / med_dec below state why the 32-bit update equals
-//   the int64 one on every int32 median); the interval base and the value
-//   stay int64, as an escape's ones count can reach 2^32.
+//   medians (med_inc / med_dec in stream.cuh state why the 32-bit update
+//   equals the int64 one on every int32 median); the interval base and
+//   the value stay int64, as an escape's ones count can reach 2^32.
 // - Real branches for zero runs, escapes and gammas: they are rare, and
 //   the lanes of a warp mostly take the same path. The hybrid search is a
 //   short data-dependent loop (it stops when hi - lo reaches the error
@@ -158,30 +158,6 @@ __device__ __forceinline__ Gamma read_gamma(R& rd) {
     rd.skip((int)cbits - 1);
   }
   return g;
-}
-
-// The median updates (WordsUtils.cs:433-475) with divisor 2^SH: the int64
-// form of the plain version, and its 32-bit form for int32 medians. With
-// m = q 2^SH + r (q = m >> SH, 0 <= r < 2^SH), (m + 2^SH) >> SH is
-// exactly q + 1 and (m + 2^SH - 2) >> SH is q + ((r + 2^SH - 2) >> SH);
-// q, and q + 1 times 5 or 2, fit int32, and the int64 sum truncated to
-// int32 (wrap32) is the sum in 32-bit unsigned arithmetic.
-template <int SH>
-__device__ __forceinline__ long long med_inc(long long m) {
-  return wrap32(m + ((m + (1LL << SH)) >> SH) * 5);
-}
-template <int SH>
-__device__ __forceinline__ long long med_dec(long long m) {
-  return wrap32(m - ((m + (1LL << SH) - 2) >> SH) * 2);
-}
-template <int SH>
-__device__ __forceinline__ int med_inc(int m) {
-  return (int)((unsigned)m + (unsigned)(((m >> SH) + 1) * 5));
-}
-template <int SH>
-__device__ __forceinline__ int med_dec(int m) {
-  const int q = (m >> SH) + (((m & ((1 << SH) - 1)) + (1 << SH) - 2) >> SH);
-  return (int)((unsigned)m - (unsigned)(q * 2));
 }
 
 // read_code for an int32 maxcode: maxcode = (m >> 4) of an int32 median

@@ -1,6 +1,7 @@
 // Bit-level helpers shared by the kernels that read a lane's staged
-// bitstream (entropy.cu, wvc.cu, wvx.cu): C#'s int32 wrap, shifts with
-// defined overflow, and a 64-bit window over the lane's 32-bit words.
+// bitstream (entropy.cu, wvc.cu, wvx.cu) and by the encode word coders
+// (encode_bits.cuh): C#'s int32 wrap, shifts with defined overflow, a
+// 64-bit window over the lane's 32-bit words, and the median updates.
 
 #pragma once
 
@@ -34,6 +35,30 @@ __device__ __forceinline__ long long bits_of(uint64_t win, long long n) {
 // bit_length of a value, 0 for x <= 0 (count_bits, WordsUtils.cs:513).
 __device__ __forceinline__ long long bit_length(long long x) {
   return x > 0 ? 64 - __clzll(x) : 0;
+}
+
+// The median updates (WordsUtils.cs:433-475) with divisor 2^SH: the int64
+// form of the plain version, and its 32-bit form for int32 medians. With
+// m = q 2^SH + r (q = m >> SH, 0 <= r < 2^SH), (m + 2^SH) >> SH is
+// exactly q + 1 and (m + 2^SH - 2) >> SH is q + ((r + 2^SH - 2) >> SH);
+// q, and q + 1 times 5 or 2, fit int32, and the int64 sum truncated to
+// int32 (wrap32) is the sum in 32-bit unsigned arithmetic.
+template <int SH>
+__device__ __forceinline__ long long med_inc(long long m) {
+  return wrap32(m + ((m + (1LL << SH)) >> SH) * 5);
+}
+template <int SH>
+__device__ __forceinline__ long long med_dec(long long m) {
+  return wrap32(m - ((m + (1LL << SH) - 2) >> SH) * 2);
+}
+template <int SH>
+__device__ __forceinline__ int med_inc(int m) {
+  return (int)((unsigned)m + (unsigned)(((m >> SH) + 1) * 5));
+}
+template <int SH>
+__device__ __forceinline__ int med_dec(int m) {
+  const int q = (m >> SH) + (((m & ((1 << SH) - 1)) + (1 << SH) - 2) >> SH);
+  return (int)((unsigned)m - (unsigned)(q * 2));
 }
 
 struct Stream {

@@ -258,9 +258,10 @@ def scan_lanes(lanes: Lanes):
     seeds = (t["w0a"], t["w0b"], t["h0a"], t["h0b"])
     chain = (t["targets"], t["terms"], t["deltas"], t["num_terms"])
     if lanes.hybrid:
+        # every lane carries the spec's chain: its compiled kernel runs
         words, total, decoded = hybrid_scan_any(
             *chain, t["med0"], t["slow0"], t["acc0"], t["delta0"],
-            t["nvals"], *seeds, **kw)
+            t["nvals"], *seeds, static_terms=tuple(lanes.spec.terms), **kw)
     else:
         res = invert_any(*chain, *seeds, **kw)
         T, L, C = res.shape

@@ -11,6 +11,13 @@ csrc/encode_words.cu, csrc/encode_hybrid.cu).
   ops/encode_pack.py::pack_segments_device), with the same arguments and
   results: (words (L, payload_cap(W)) int32, zero past each lane's end;
   total_bits (L,) int64), and for hybrid the reconstruction (T, L, C).
+
+csrc/encode_hybrid.cu compiles one kernel for each chain of
+decorr_cuda.CHAINS (its weights and rings in registers) and a run-time
+kernel for any chain; `static_terms` (wvpk's argument: every lane carries
+this chain) picks the chain's kernel, as decorr_cuda.lane_runs does. Both
+coders run lanes whose medians fit int32 in 32-bit arithmetic and any
+other lane with int64 medians in the same kernel (`int64_lanes`).
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .decorr_cuda import _as_i32
+from .decorr_cuda import INSTANCES, _as_i32, instance_name, lane_runs
 from .encode_kernels import entropy_encode_words, hybrid_encode_scan
 from .encode_pack import pack_segments_device, payload_cap
 from .entropy_cuda import _check, _tables
@@ -106,6 +113,14 @@ def encode_words_plain(res_words, med0, nvals, *, mono: bool):
     return pack_segments_device(bits, lens, *pending)
 
 
+def int64_lanes(med0) -> torch.Tensor:
+    """Which lanes the word coders run with int64 medians: a (L,) bool
+    tensor, True where a staged median lies outside int32 (never for the
+    encoder's quantized medians)."""
+    m = med0.to(I64).reshape(med0.shape[0], -1)
+    return ((m < -(1 << 31)) | (m >= 1 << 31)).any(-1)
+
+
 def encode_words_cuda(res_words, med0, nvals, *, mono: bool):
     """Lossless word coding of res_words (W, L) int32 with medians med0
     (L, 2, 3) int64 and valid word counts nvals (L,): (words (L,
@@ -122,23 +137,27 @@ def encode_words_cuda(res_words, med0, nvals, *, mono: bool):
     cap = payload_cap(W)
     words = torch.zeros((L, cap), dtype=I32, device=dev)
     total = torch.empty(L, dtype=I64, device=dev)
-    err = _fn("encode_words", "wvpk_encode_words", 5, 4)(
+    wide = torch.zeros(1, dtype=I32, device=dev)
+    err = _fn("encode_words", "wvpk_encode_words", 6, 4)(
         res_words.data_ptr(), med0.data_ptr(), nv.data_ptr(),
-        words.data_ptr(), total.data_ptr(), L, W, cap, int(mono),
-        _stream(dev))
+        words.data_ptr(), total.data_ptr(), wide.data_ptr(), L, W, cap,
+        int(mono), _stream(dev))
     if err != 0:
         raise RuntimeError(f"encode_words kernel launch failed: CUDA "
                            f"error {err}")
     encode_words_cuda.launches += 1
+    encode_words_cuda.wide_lanes = wide
     return words, total
 
 
 def hybrid_encode_plain(targets, terms, deltas, num_terms, med0, slow0, acc0,
                         delta0, nvals, w0a, w0b, h0a, h0b, *, mono: bool,
-                        hybrid_bitrate: bool, hybrid_balance: bool):
+                        hybrid_bitrate: bool, hybrid_balance: bool,
+                        static_terms=None):
     """The plain version of `hybrid_encode_cuda`: hybrid_encode_scan, then
     the slots and the final flush packed. Returns (words, total_bits,
-    recon)."""
+    recon). `static_terms` chooses a kernel and changes no result: it is
+    taken and ignored."""
     out = hybrid_encode_scan(
         targets, terms, deltas, num_terms, med0, slow0, acc0, delta0, nvals,
         w0a, w0b, h0a, h0b, mono=mono, hybrid_bitrate=hybrid_bitrate,
@@ -148,32 +167,44 @@ def hybrid_encode_plain(targets, terms, deltas, num_terms, med0, slow0, acc0,
 
 def hybrid_encode_cuda(targets, terms, deltas, num_terms, med0, slow0, acc0,
                        delta0, nvals, w0a, w0b, h0a, h0b, *, mono: bool,
-                       hybrid_bitrate: bool, hybrid_balance: bool):
+                       hybrid_bitrate: bool, hybrid_balance: bool,
+                       static_terms=None):
     """The fused hybrid encode on CUDA tensors: (words (L,
     payload_cap(T * C)) int32, total_bits (L,) int64, recon (T, L, C)
-    int32), as hybrid_encode_plain."""
+    int32), as hybrid_encode_plain. `static_terms`, when every lane
+    carries that chain, runs its compiled kernel where CHAINS has one
+    (wvpk's rule: ignored when empty, or on mono with cross terms); the
+    run-time kernel runs otherwise."""
     T, L, C = _targets("encode_hybrid kernel", targets, mono)
     dev = targets.device
+    ((chain, _lo, _hi),) = lane_runs(L, mono, static_terms)
     args = _chain("encode_hybrid", L, dev, terms, deltas, num_terms, w0a,
                   w0b, h0a, h0b)
     for name, t, shape in (("med0", med0, (L, 2, 3)), ("slow0", slow0, (L, 2)),
                            ("acc0", acc0, (L, 2)), ("delta0", delta0, (L, 2))):
         _check(name, t, I64, shape, dev, "encode_hybrid")
     nv = _as_i32("nvals", nvals, (L,), dev, "encode_hybrid")
+    # the kernels copy a lane's C targets of a step with one cp.async of
+    # 4 C bytes, which must be aligned to its size (a fresh tensor is)
+    if targets.data_ptr() % (4 * C):
+        targets = targets.clone()
     cap = payload_cap(T * C)
     words = torch.zeros((L, cap), dtype=I32, device=dev)
     total = torch.empty(L, dtype=I64, device=dev)
     recon = torch.empty_like(targets)
-    err = _fn("encode_hybrid", "wvpk_encode_hybrid", 17, 6)(
+    wide = torch.zeros(1, dtype=I32, device=dev)
+    err = _fn("encode_hybrid", "wvpk_encode_hybrid", 18, 7)(
         targets.data_ptr(), *(a.data_ptr() for a in args), med0.data_ptr(),
         slow0.data_ptr(), acc0.data_ptr(), delta0.data_ptr(), nv.data_ptr(),
         _tables(dev).data_ptr(), words.data_ptr(), total.data_ptr(),
-        recon.data_ptr(), L, T, cap, int(mono), int(hybrid_bitrate),
-        int(hybrid_balance), _stream(dev))
+        recon.data_ptr(), wide.data_ptr(), L, T, cap, int(mono),
+        int(hybrid_bitrate), int(hybrid_balance), chain, _stream(dev))
     if err != 0:
         raise RuntimeError(f"encode_hybrid kernel launch failed: CUDA "
                            f"error {err}")
     hybrid_encode_cuda.launches += 1
+    hybrid_encode_cuda.chain_launches[instance_name(chain, mono)] += 1
+    hybrid_encode_cuda.wide_lanes = wide
     return words, total, recon
 
 
@@ -182,3 +213,10 @@ decorr_invert_cuda.launches = 0
 decorr_invert_cuda.warm_launches = 0
 encode_words_cuda.launches = 0
 hybrid_encode_cuda.launches = 0
+# of `launches`, those of each kernel instantiation (decorr_cuda.INSTANCES:
+# the chains of CHAINS, "generic" and "generic_mono" the run-time kernel)
+hybrid_encode_cuda.chain_launches = dict.fromkeys(INSTANCES, 0)
+# the last launch's count of lanes coded with int64 medians (int64_lanes),
+# a (1,) int32 tensor on its device (0 on staged lanes)
+encode_words_cuda.wide_lanes = None
+hybrid_encode_cuda.wide_lanes = None

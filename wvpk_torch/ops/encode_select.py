@@ -3,9 +3,13 @@ wvpk/ops/encode_select.py).
 
 CPU tensors take the plain PyTorch versions (encode_kernels.py packed by
 encode_pack.py), CUDA tensors the kernels (encode_cuda.py). There is no
-option and no fallback between them. wvpk's `static_terms` has no
-counterpart: the kernels read each lane's term chain at run time, so every
-chain, mono chains with cross terms included, runs on the card.
+option and no fallback between them. `hybrid_scan_any` takes wvpk's
+`static_terms` ("every lane carries this chain"): on the card it runs the
+hybrid kernel compiled for that chain where ops/decorr_cuda.py::CHAINS
+has one, else the run-time kernel, which reads each lane's chain; the
+plain version ignores it. The invert and the word coder have no such
+argument: the invert reads each lane's chain at run time, so every chain,
+mono chains with cross terms included, runs on the card.
 """
 
 from __future__ import annotations
@@ -41,9 +45,13 @@ def words_any(res_words, med0, nvals, *, mono: bool):
 
 def hybrid_scan_any(targets, terms, deltas, num_terms, med0, slow0, acc0,
                     delta0, nvals, w0a, w0b, h0a, h0b, *, mono: bool,
-                    hybrid_bitrate: bool, hybrid_balance: bool):
-    """Fused hybrid encode: (payload words, total bits, recon (T, L, C))."""
+                    hybrid_bitrate: bool, hybrid_balance: bool,
+                    static_terms: tuple | None = None):
+    """Fused hybrid encode: (payload words, total bits, recon (T, L, C)).
+    `static_terms`: the chain every lane carries, if the caller knows
+    one."""
     fn = hybrid_encode_cuda if _on_cuda(targets) else hybrid_encode_plain
     return fn(targets, terms, deltas, num_terms, med0, slow0, acc0, delta0,
               nvals, w0a, w0b, h0a, h0b, mono=mono,
-              hybrid_bitrate=hybrid_bitrate, hybrid_balance=hybrid_balance)
+              hybrid_bitrate=hybrid_bitrate, hybrid_balance=hybrid_balance,
+              static_terms=static_terms)

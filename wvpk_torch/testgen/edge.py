@@ -1,7 +1,9 @@
 """Edge streams: for the entropy decoder, one bucket of one profile whose
 lanes take every path of get_words (WordsUtils.cs:272-511); for the DSD
 decoders, one group of one profile whose lanes take every branch of the
-mode-1 and mode-3 coders (`dsd_edge_states`, at the end).
+mode-1 and mode-3 coders (`dsd_edge_states`); for the encode word coders,
+staged kernel inputs whose lanes reach every branch of the lossless and
+the hybrid coder (`encode_edge_lanes`, at the end).
 
 No counterpart in wvpk.testgen. Each lane is a one-block file of
 EDGE_SAMPLES samples, encoded with this package's encoder and parsed back;
@@ -251,3 +253,187 @@ def dsd_edge_states(profile: str, lanes: int = 64, seed: int = 0) -> list:
         extra = top - k - len(st.dsd.data)
         st.dsd.data += rng.integers(0, 256, extra).astype(np.uint8).tobytes()
     return states
+
+
+# Encode edge lanes: the inputs of one word-coder launch (ops/encode_cuda.py:
+# encode_words_cuda, hybrid_encode_cuda) of ENCODE_EDGE_STEPS samples a
+# lane, lane i of content kind ENCODE_VALUE_KINDS[i % 8]:
+# - `noise`: Gaussian words, amplitude 2^3 .. 2^18 by lane (quotients 0-3
+#   past the second median, and larger);
+# - `extremes`: noise with words at INT32_MIN and INT32_MAX;
+# - `silence`: zeros with short bursts, some in one channel only, and a
+#   zero tail, from zero medians (zero runs that start on either word of a
+#   stereo sample, cross the 32-word staging tiles and reach the lane's
+#   end; the hybrid run gate);
+# - `spikes`: small noise with rare spikes of 2^20 .. 2^30 from zero
+#   medians (LIMIT_ONES escapes whose gamma takes more than 32 bits);
+# - `med_max`: noise from medians at 2^31 - 1, the largest the 32-bit body
+#   admits (their first increase wraps);
+# - `med_wide`: noise from medians past int32 (the int64 body);
+# - `med_zero`: noise from zero medians;
+# - `ladder`: words of 1 .. 5 times the third median's interval past the
+#   second (quotients 0-4 in turn).
+# Hybrid lanes also take error-limit kind ENCODE_LIMIT_KINDS[i % 7], set by
+# their bitrate accumulators and slow levels: `zero` (limit 0: the lossless
+# code), `mid`, `high` (exp2s shifts past 9, limits above any interval),
+# `negative` (negative limits without HYBRID_BITRATE: searches of 32
+# steps), `slow_low` (slow_log - br <= -0x100), `balance_hi` and
+# `balance_lo` (HYBRID_BALANCE's two clamps). Every hybrid lane carries
+# ENCODE_EDGE_CHAIN; three in four have zero weights, deltas and rings, so
+# their residuals are their targets, the rest random seeds and deltas.
+# nvals: lane 0 has no words, lane 1 one fewer than full (odd in stereo),
+# every eighth lane from 5 on a random count, the others full.
+ENCODE_EDGE_STEPS = 320
+ENCODE_EDGE_KINDS = ("words", "words_mono", "hybrid", "hybrid_mono")
+ENCODE_VALUE_KINDS = ("noise", "extremes", "silence", "spikes", "med_max",
+                      "med_wide", "med_zero", "ladder")
+ENCODE_LIMIT_KINDS = ("zero", "mid", "high", "negative", "slow_low",
+                      "balance_hi", "balance_lo")
+ENCODE_EDGE_CHAIN = (18, 18, 2, 17, 3)   # the default preset's chain
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+_MED_MAX = ((_I32_MAX,) * 3, (5, _I32_MAX, 40), (_I32_MAX, 3, _I32_MAX))
+_MED_WIDE = ((1 << 31, 40, 40), (7, 1 << 33, 90), (1 << 40, 1 << 35, 1 << 31))
+
+
+def _enc_values(kind: str, i: int, T: int, C: int, rng) -> np.ndarray:
+    if kind == "silence":
+        v = np.zeros((T, C), np.int64)
+        for at in rng.integers(0, T - 24, T // 12):
+            n = int(rng.integers(1, 4))
+            ch = slice(0, C) if rng.random() < 0.5 else slice(0, 1)
+            v[at:at + n, ch] = rng.integers(-40, 41, (n, C))[:, ch]
+        return v
+    if kind == "spikes":
+        v = np.round(rng.normal(0, 3, (T, C))).astype(np.int64)
+        hit = rng.random((T, C)) < 0.03
+        v[hit] = rng.integers(1 << 20, 1 << 30, int(hit.sum())) \
+            * rng.choice([-1, 1], int(hit.sum()))
+        return v
+    if kind == "ladder":
+        return np.zeros((T, C), np.int64)     # set by the caller
+    amp = 2.0 ** (3 + (i // len(ENCODE_VALUE_KINDS)) % 16) \
+        if kind == "noise" else 2.0 ** (8 + i % 5)
+    v = np.round(rng.normal(0, amp, (T, C))).astype(np.int64)
+    if kind == "extremes":
+        hit = rng.random((T, C))
+        v[hit < 0.04] = _I32_MIN
+        v[(hit >= 0.04) & (hit < 0.08)] = _I32_MAX
+    return v
+
+
+def _enc_medians(kind: str, i: int, rng) -> np.ndarray:
+    n = i // len(ENCODE_VALUE_KINDS)
+    if kind in ("silence", "spikes", "med_zero"):
+        return np.zeros((2, 3), np.int64)
+    if kind == "med_max":
+        return np.asarray([_MED_MAX[n % 3], _MED_MAX[(n + 1) % 3]], np.int64)
+    if kind == "med_wide":
+        m = np.asarray([(40, 40, 40), _MED_WIDE[n % 3]], np.int64)
+        return m[::-1].copy() if n % 2 else m
+    if kind == "ladder":
+        return np.asarray([(0, 0, 200), (0, 0, 200)], np.int64)
+    return np.sort(rng.integers(0, 1 << int(rng.integers(4, 15)), (2, 3)),
+                   axis=1)
+
+
+def _ladder(T: int, C: int, med: np.ndarray) -> np.ndarray:
+    """Words that step the quotient past the second median through 0..4
+    against the medians as they adapt: computed word by word with the
+    coder's own median updates (WordsUtils.cs:433-475)."""
+    m = [list(map(int, med[c])) for c in range(2)]
+    v = np.zeros((T, C), np.int64)
+
+    def wrap(x):
+        return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+    for t in range(T):
+        for c in range(C):
+            g0, g1 = (m[c][0] >> 4) + 1, (m[c][1] >> 4) + 1
+            g2 = max((m[c][2] >> 4) + 1, 1)
+            q = (t * C + c) % 5
+            av = max(g0 + g1, 0) + q * g2 + g2 // 2
+            v[t, c] = av if t % 2 else ~av
+            oc = 2 + (av - g0 - g1) // g2 if av >= g0 + g1 else \
+                (0 if av < g0 else 1)
+            a, b, d = m[c]
+            a = wrap(a - ((a + 126) >> 7) * 2) if oc == 0 else \
+                wrap(a + ((a + 128) >> 7) * 5)
+            if oc >= 1:
+                b = wrap(b - ((b + 62) >> 6) * 2) if oc == 1 else \
+                    wrap(b + ((b + 64) >> 6) * 5)
+            if oc >= 2:
+                d = wrap(d - ((d + 30) >> 5) * 2) if oc == 2 else \
+                    wrap(d + ((d + 32) >> 5) * 5)
+            m[c] = [a, b, d]
+    return v
+
+
+def _limits(kind: str, rng):
+    """(slow0, acc0, delta0) rows of one hybrid lane of limit kind `kind`."""
+    slow = np.zeros(2, np.int64)
+    acc = np.full(2, 300 << 16, np.int64)
+    delta = rng.integers(-2, 3, 2).astype(np.int64)
+    if kind == "zero":
+        acc[:] = 0
+        delta[:] = 0
+    elif kind == "mid":
+        slow[:] = rng.integers(0, 3000 << 8, 2)
+    elif kind == "high":
+        acc[:] = 0x1400 << 16
+        slow[:] = (0x1400 + 0x1500) << 8
+    elif kind == "negative":
+        acc[:] = -(0xA00 << 16)
+        delta[:] = 0
+    elif kind == "slow_low":
+        acc[:] = 0x800 << 16
+    elif kind == "balance_hi":
+        slow[1] = 5000 << 8
+    elif kind == "balance_lo":
+        slow[0] = 5000 << 8
+    return slow, acc, delta
+
+
+def encode_edge_lanes(kind: str, lanes: int = 64, seed: int = 0) -> tuple:
+    """The staged inputs of one word-coder launch of `kind`
+    (ENCODE_EDGE_KINDS), as numpy arrays in the kernel's argument order:
+    words: (res_words (W, L) int32, med0 (L, 2, 3) int64, nvals (L,)
+    int32); hybrid: (targets (T, L, C) int32, terms, deltas, num_terms,
+    med0, slow0, acc0, delta0, nvals, w0a, w0b, h0a, h0b), every lane on
+    ENCODE_EDGE_CHAIN. Mono lanes leave channel 1's medians at 0."""
+    mono = kind.endswith("_mono")
+    C = 1 if mono else 2
+    T = ENCODE_EDGE_STEPS
+    rng = np.random.default_rng(seed)
+    vals = np.zeros((T, lanes, C), np.int64)
+    med0 = np.zeros((lanes, 2, 3), np.int64)
+    for i in range(lanes):
+        vk = ENCODE_VALUE_KINDS[i % len(ENCODE_VALUE_KINDS)]
+        med0[i, :C] = _enc_medians(vk, i, rng)[:C]
+        vals[:, i] = _ladder(T, C, med0[i]) if vk == "ladder" else \
+            _enc_values(vk, i, T, C, rng)
+    nvals = np.full(lanes, T * C, np.int32)
+    nvals[5::8] = rng.integers(1, T * C, len(nvals[5::8]))
+    nvals[:2] = (0, T * C - 1)[:lanes]
+    vals = vals.astype(np.int32)
+    if kind.startswith("words"):
+        return (np.ascontiguousarray(vals.transpose(0, 2, 1).reshape(
+            T * C, lanes)), med0, nvals)
+    K = len(ENCODE_EDGE_CHAIN)
+    terms = np.zeros((lanes, 16), np.int32)
+    terms[:, :K] = ENCODE_EDGE_CHAIN
+    deltas = np.zeros((lanes, 16), np.int32)
+    w0 = np.zeros((2, lanes, 16), np.int64)
+    h0 = np.zeros((2, lanes, 16, 8), np.int64)
+    chained = np.arange(lanes) % 4 == 3
+    deltas[chained, :K] = rng.integers(1, 8, (int(chained.sum()), K))
+    w0[:, chained, :K] = rng.integers(-900, 900, (2, int(chained.sum()), K))
+    h0[:, chained, :K] = rng.integers(-(1 << 14), 1 << 14,
+                                      (2, int(chained.sum()), K, 8))
+    slow0 = np.zeros((lanes, 2), np.int64)
+    acc0 = np.zeros((lanes, 2), np.int64)
+    delta0 = np.zeros((lanes, 2), np.int64)
+    for i in range(lanes):
+        slow0[i], acc0[i], delta0[i] = _limits(
+            ENCODE_LIMIT_KINDS[i % len(ENCODE_LIMIT_KINDS)], rng)
+    return (vals, terms, deltas, np.full(lanes, K, np.int32), med0, slow0,
+            acc0, delta0, nvals, w0[0], w0[1], h0[0], h0[1])

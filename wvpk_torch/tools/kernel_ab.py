@@ -6,6 +6,7 @@
     python3 wvpk_torch/tools/kernel_ab.py --runs ROOT [--reps 5]
     python3 wvpk_torch/tools/kernel_ab.py --dsd OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --dsd ROOT
+    python3 wvpk_torch/tools/kernel_ab.py --encode OLD_ROOT NEW_ROOT
 
 Two checkouts, in turns old, new, new, old. Each turn is a process of its
 own with that root's `wvpk_torch` and `chip_smoke.py` first on the path
@@ -50,6 +51,25 @@ the groups one after another (chip_smoke.dsd_side_vs_sequence, `--calls`
 times, each in turns side, sequence, sequence, side), then its launch
 order (mode 3 first) against the groups' own order on side streams; all
 must give the same outputs.
+
+`--encode OLD_ROOT NEW_ROOT` runs the same turns on the encode track of
+chip_smoke.py (chip_smoke.track_head: a 768 s stereo track, 8,269 lanes of
+4,096 samples, the default preset, warm seeding over 512 samples):
+  - the word coders at the encoder's launches, lossless (words) and
+    hybrid at bitrate 512 (the hybrid kernel with the root's main-path
+    arguments, `static_terms` where its wrapper takes it), at all lanes
+    and on the first 64 (`--reps` launches each, CUDA events), with a
+    digest of each launch's outputs, which must agree across the turns;
+  - the decode kernels that share the coders' headers, at chip_smoke.py's
+    launches: the entropy kernel's hybrid profile (the hybrid corpus'
+    largest bucket) and `wvc=True` profile (the wvc corpus'), the
+    decorrelation chain kernel (the lossless corpus' largest bucket, its
+    chain as `static_terms`) and its wvc arm (the wvc bucket, its chain
+    runs), each with a digest;
+  - encode_device on the track, lossless and hybrid: one warm-up and
+    `--calls` timed calls each (host clock, closed by a synchronize;
+    Msamples/s), every call's enc_* stage split, a digest of the bytes.
+`--calls 0` times the word coders alone.
 
 Needs one CUDA device; imports no jax.
 """
@@ -408,6 +428,172 @@ def ab_dsd(old: str, new: str, reps: int, calls: int) -> int:
     return 0 if same and not any(t["bad_blocks"] for t in turns) else 1
 
 
+def _launch_row(fn, args, kw, reps) -> dict:
+    """One kernel launch's outputs digested, then `reps` launches timed
+    after a round that brings the clocks up."""
+    out = fn(*args, **kw)
+    out = out if isinstance(out, tuple) else (out,)
+    digest = _digest(o for o in out if o is not None)
+    _timed(lambda: fn(*args, **kw), reps)
+    return {"ms": _timed(lambda: fn(*args, **kw), reps), "digest": digest}
+
+
+def _takes(fn, name) -> bool:
+    return name in inspect.signature(fn).parameters
+
+
+def _decode_rows(cs, reps) -> dict:
+    """The decode kernels that share the encode coders' headers, at
+    chip_smoke.py's launches."""
+    import torch
+
+    from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+    from wvpk_torch.ops.decorr_cuda import decorr_post_cuda, \
+        decorr_post_wvc_cuda
+    from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda, \
+        entropy_decode_wvc_cuda
+    from wvpk_torch.ops.wvc_cuda import wvc_corrections_cuda
+
+    dev = torch.device("cuda")
+    rows = {}
+
+    def bucket(states):
+        b = max(group_blocks(states), key=lambda x: len(x.states))
+        return b, bucket_tensors(b, dev)
+
+    def chain_kw(fn, b):
+        kw = dict(mono=b.profile.mono)
+        if _takes(fn, "static_terms"):
+            kw.update(static_terms=b.static_terms,
+                      chain_segments=b.chain_segments)
+        return kw
+
+    files, _ = cs.make_corpus()
+    b, t = bucket(cs.parse_corpus(files, cs.N_FILES)[0])
+    args, kw = cs._entropy_io(t, b.profile)
+    res = entropy_decode_cuda(*args, hybrid=False, **kw)[0]
+    rows["decorr_chain"] = dict(lanes=len(b.states), **_launch_row(
+        decorr_post_cuda, cs._decorr_args(t, res),
+        chain_kw(decorr_post_cuda, b), reps))
+    del t, res
+
+    files, _ = cs.make_hybrid()
+    b, t = bucket(cs.parse_corpus(files, len(files) * cs.HYBRID_COPIES)[0])
+    args, kw = cs._entropy_io(t, b.profile)
+    rows["entropy_hybrid"] = dict(lanes=len(b.states), **_launch_row(
+        entropy_decode_cuda, args, dict(kw, hybrid=True), reps))
+    del t
+
+    pairs, _ = cs.make_wvc()
+    b, t = bucket(cs.parse_corpus(pairs, len(pairs) * cs.WVC_COPIES)[0])
+    args, kw = cs._entropy_io(t, b.profile)
+    rows["entropy_wvc"] = dict(lanes=len(b.states), **_launch_row(
+        entropy_decode_wvc_cuda, args, kw, reps))
+    res, mc, base, _broke, _ = entropy_decode_wvc_cuda(*args, **kw)
+    corr = wvc_corrections_cuda(t["wvc_words"], mc, base, res)
+    rows["decorr_wvc"] = dict(lanes=len(b.states), **_launch_row(
+        decorr_post_wvc_cuda, (res, corr) + cs._decorr_args(t, res)[1:],
+        chain_kw(decorr_post_wvc_cuda, b), reps))
+    return rows
+
+
+def measure_encode(root: str, reps: int, calls: int) -> dict:
+    """One `--encode` turn: `root`'s word coders, the decode kernels that
+    share their headers, and encode_device on the encode track."""
+    cs = _import_root(root)
+    import torch
+
+    from wvpk_torch import trace
+    from wvpk_torch.encode import build_spec, encode_device
+    from wvpk_torch.engine.device_encoder import stage_lanes
+    from wvpk_torch.ops import encode_cuda as ec
+
+    dev = torch.device("cuda")
+    track = cs.track_head()
+    modes = (("lossless", {}),
+             ("hybrid", dict(hybrid=True, bitrate=cs.ENC_BITRATE)))
+    kernels = {}
+    for mode, opts in modes:
+        lanes = stage_lanes(track, build_spec(
+            track, block_samples=cs.ENC_BLOCK, **opts), cs.ENC_WARMUP, dev)
+        if mode == "lossless":
+            args, kw, _n, _o = cs._enc_launches(lanes, "invert")
+            lanes.t["residuals"] = ec.decorr_invert_cuda(*args, **kw)
+            kind, fn = "words", ec.encode_words_cuda
+        else:
+            kind, fn = "hybrid", ec.hybrid_encode_cuda
+        args, kw, _n, _o = cs._enc_launches(lanes, kind)
+        if kind == "hybrid" and _takes(fn, "static_terms"):
+            kw = dict(kw, static_terms=tuple(lanes.spec.terms))
+        kernels[kind] = dict(lanes=len(lanes.starts), kwargs=sorted(kw),
+                             **_launch_row(fn, args, kw, reps))
+        kernels[kind + "64"] = dict(lanes=64, **_launch_row(
+            fn, cs._lane_prefix(args, 64), kw, reps))
+        del lanes, args
+    if calls:
+        kernels.update(_decode_rows(cs, reps))
+    e2e = {}
+    for mode, opts in modes if calls else ():
+        rates, stages, wv = [], [], None
+        for rep in range(calls + 1):
+            wv = None
+            with trace.collect() as st:
+                t0 = time.perf_counter()
+                wv = encode_device(track, device=dev,
+                                   block_samples=cs.ENC_BLOCK,
+                                   warmup=cs.ENC_WARMUP, **opts)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            if rep:
+                rates.append(len(track) / dt / 1e6)
+                stages.append({k: 1000 * v for k, v in st.items()})
+        e2e[mode] = {"msamples_per_s": rates, "stage_ms": stages,
+                     "digest": hashlib.sha256(wv).hexdigest()[:16]}
+    return {"root": root, "kernels": kernels, "encode_device": e2e,
+            "card": torch.cuda.get_device_name(0)}
+
+
+def ab_encode(old: str, new: str, reps: int, calls: int) -> int:
+    turns = []
+    for root in (old, new, new, old):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), root,
+             "--encode-turn", "--reps", str(reps), "--calls", str(calls)],
+            capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+        turn = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(turn))
+        turns.append(turn)
+    digests = [{**{name: row["digest"] for name, row in t["kernels"].items()},
+                **{mode: row["digest"]
+                   for mode, row in t["encode_device"].items()}}
+               for t in turns]
+    same = all(d == digests[0] for d in digests)
+    sides = {"old": turns[0::3], "new": turns[1:3]}
+    modes = list(turns[0]["encode_device"])
+    print(json.dumps({
+        "same_outputs": same,
+        "kernel_ms": {name: {side: [t["kernels"][name]["ms"] for t in ts]
+                             for side, ts in sides.items()}
+                      for name in turns[0]["kernels"]},
+        "encode_msamples_per_s": {
+            mode: {side: [r for t in ts
+                          for r in t["encode_device"][mode]["msamples_per_s"]]
+                   for side, ts in sides.items()}
+            for mode in modes},
+        "encode_stage_ms_median": {
+            mode: {side: {s: _median([m[s] for t in ts
+                                      for m in t["encode_device"][mode][
+                                          "stage_ms"]])
+                          for s in turns[0]["encode_device"][mode][
+                              "stage_ms"][0]}
+                   for side, ts in sides.items()}
+            for mode in modes}}))
+    return 0 if same else 1
+
+
 def _side_in_group_order(dp, groups, staged):
     """decode_groups' side streams with the groups launched in their
     order of appearance (mode 1 first on the corpus), not mode 3 first."""
@@ -476,6 +662,11 @@ def main() -> int:
                     help="measure the root OLD in this process")
     ap.add_argument("--dsd-turn", action="store_true",
                     help="measure the root OLD's DSD path in this process")
+    ap.add_argument("--encode", action="store_true",
+                    help="the encode track: OLD NEW in turns")
+    ap.add_argument("--encode-turn", action="store_true",
+                    help="measure the root OLD's encode path in this "
+                    "process")
     a = ap.parse_args()
     if a.runs:
         return runs(a.runs, a.reps)
@@ -485,6 +676,13 @@ def main() -> int:
     if a.dsd_turn:
         print(json.dumps(measure_dsd(a.old, a.reps, a.calls)))
         return 0
+    if a.encode_turn:
+        print(json.dumps(measure_encode(a.old, a.reps, a.calls)))
+        return 0
+    if a.encode:
+        if not (a.old and a.new):
+            ap.error("--encode takes OLD_ROOT and NEW_ROOT")
+        return ab_encode(a.old, a.new, a.reps, a.calls)
     if a.dsd and a.old and not a.new:
         return dsd_streams(a.old, a.reps, a.calls)
     if a.dsd and a.new:
