@@ -8,9 +8,12 @@ Phases, each printing one JSON line:
   2. build every CUDA kernel from wvpk_torch/csrc, one nvcc per source, all
      started together; ptxas' registers, stack frame and spill bytes of
      each kernel (every compiled decorrelation chain, both word coders and
-     every hybrid chain kernel must have neither stack nor spills to be in
-     registers); the hybrid encode source, the longest build, runs beside
-     phases 3-7 and is joined (its own build line) before phase 8;
+     every hybrid and invert chain kernel and both correction-scan
+     kernels must have neither stack nor spills to be in registers, or
+     the run fails; the invert's and the correction scan's registers are
+     listed by kernel); the two encode sources with a kernel per chain,
+     the longest builds, run beside phases 3-7 and are joined (their own
+     build line) before phase 8;
   3. lossless: each kernel against its plain PyTorch version on the card,
      bit-exact, at the full bucket (the main path's shape) and launched on
      a 64-lane slice, both timed; then the bench corpus (192 files of 4 s
@@ -27,7 +30,9 @@ Phases, each printing one JSON line:
      of edge streams for each profile (wvpk_torch/testgen/edge.py:
      lossless, hybrid plain / HYBRID_BITRATE / HYBRID_BALANCE, stereo and
      mono, with and without the wvc outputs), against its plain version
-     on a CPU copy; and the mixed-chain corpus (MIX_FILES files of 4 s on
+     on a CPU copy, the correction-stream kernel on the wvc profiles'
+     outputs too (lanes whose .wvc is cut short among them, which must
+     run past their stream); and the mixed-chain corpus (MIX_FILES files of 4 s on
      each of the bench chain, the three encoder presets and one chain
      outside the table, ~430 lanes in one bucket sorted into one run per
      chain): its decorrelation kernels against their plain versions on a
@@ -46,7 +51,11 @@ Phases, each printing one JSON line:
      entropy kernel's wvc profile, the correction-stream kernel and the
      decorrelation kernel's wvc arm against their plain versions, then
      decode_states: sample-exact against the source, both CRCs good and
-     the corrections applied to every block;
+     the corrections applied to every block; then the correction-stream
+     kernel on 64 edge lanes, stereo and mono (wvpk_torch/testgen/edge.py::
+     wvc_edge_lanes: maxcodes of every bit length, base + code past int32,
+     rows read past their last word's start), against its plain version
+     on a CPU copy;
   6. float (8 signals x 9) and int32+wvx (4 files x 18, several sent_bits,
      max_width 0 and 30; the wvx injection kernel against its plain
      version): decode_states sample-exact against the source, 0 CRC
@@ -80,27 +89,34 @@ Phases, each printing one JSON line:
      frames, 8,269 blocks of 4,096: 8,269 lanes), at the bench's
      settings (the default preset, warm seeding over 512 samples). Each
      encode kernel against its plain version on the card at the main
-     path's launch (the warm and the main invert, the word coder, the
-     hybrid scan at HYBRID_BITRATE through the default chain's kernel,
-     and the run-time hybrid kernel on the same lanes), timed, and
+     path's launch (the warm and the main invert through the default
+     chain's kernel, the word coder, the hybrid scan at HYBRID_BITRATE
+     through the default chain's kernel, and the run-time kernels of both
+     inverts and of the hybrid scan on the same lanes), timed, and
      launched on its first 64 lanes, timed and held against the plain
      outputs of those lanes, the word coders' int64-body lanes counted
-     (0); the other instantiations (hybrid with HYBRID_BALANCE, without
-     HYBRID_BITRATE and mono, the fast and high presets' chain kernels
-     stereo and mono, the run-time hybrid kernel, a mono invert, the
-     "high" chain's cross terms) launched on 64 lanes, each hybrid one
-     through the kernel its chain must run, and held against their plain
-     versions run on a CPU copy of the inputs in the worker pool; each word
-     coder on 64 edge lanes of each kind and profile
+     (0); the other
+     instantiations (hybrid with HYBRID_BALANCE, without HYBRID_BITRATE
+     and mono, the hybrid chain kernels of the fast, default and high
+     presets, stereo and mono, and the run-time kernel; every invert
+     chain kernel, the bench chain's too, stereo and mono, and the
+     run-time kernel on stereo, on mono and on a mono chain with cross
+     terms, each also with the final state from the staged seeds)
+     launched on 64 lanes, each through the kernel its chain must run, and
+     held against their plain versions run on a CPU copy of the inputs in
+     the worker pool; each word coder on 64 edge lanes of each kind and profile
      (wvpk_torch/testgen/edge.py::encode_edge_lanes; the hybrid ones
      through their chain's kernel and the run-time kernel) against its
      plain version run in the worker pool, the int64 body running exactly
-     the lanes staged outside int32. Then
+     the lanes staged outside int32, and the hybrid edge lanes' targets,
+     chains and seeds through the invert the same two ways, with and
+     without the final state. Then
      encode_device on the track, lossless and hybrid (bitrate 512): one
-     warm-up and two timed calls, the launch counts read (exactly 2
-     inverts, one of them warm, and 1 word coder a lossless call; 1 warm
-     invert and 1 hybrid scan a hybrid call, through the default chain's
-     kernel and never the run-time one), the last call split into
+     warm-up and two timed calls, the launch counts read per kernel
+     instance (exactly, a lossless call: the default chain's invert and
+     its invert with the final state once each, 1 word coder; a hybrid
+     call: the default chain's invert with the state and its hybrid
+     kernel once each; never a run-time kernel), the last call split into
      its trace stages, one more lossless call under torch.profiler for
      the device's idle share, the output decoded by decode_states on
      the card (0 CRC errors, 0 mutes; lossless sample-exact with its
@@ -913,8 +929,13 @@ def generic_decorr(states, device, chain_row):
 def phase_entropy_edges(dev, jobs):
     """The entropy kernel on EDGE_LANES lanes of edge streams per profile
     (testgen/edge.py), against its plain version on a CPU copy: every
-    output equal, some lanes broken and some not."""
+    output equal, some lanes broken and some not. On the wvc profiles the
+    correction-stream kernel then takes the entropy kernel's wvc outputs,
+    against its plain version on a CPU copy; the lanes whose .wvc is cut
+    short (edge.py::WVC_CUT_EVERY) must need more bits than their stream
+    holds (edge.py::wvc_min_bits), so their cursors run past it."""
     from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+    from wvpk_torch.testgen.edge import WVC_CUT_EVERY, wvc_min_bits
 
     k = _kernels()
     results = {}
@@ -925,15 +946,32 @@ def phase_entropy_edges(dev, jobs):
         key = "entropy_wvc" if b.profile.has_wvc else "entropy"
         if key == "entropy":
             kw = dict(kw, hybrid=b.profile.hybrid)
-        _got, want, res = check_pair(f"entropy edge streams {profile}",
-                                     *k[key], args, kw, True,
-                                     plain_cpu=True)
+        got, want, res = check_pair(f"entropy edge streams {profile}",
+                                    *k[key], args, kw, True,
+                                    plain_cpu=True)
         broke = want[-2]
         if not broke.any() or broke.all():
             raise AssertionError(f"edge streams {profile}: broken lanes "
                                  f"{int(broke.sum())} of {len(broke)}")
         res.update(lanes=len(b.states), words_per_lane=int(b.words.shape[1]),
                    broke_lanes=int(broke.sum()))
+        if key == "entropy_wvc":
+            cres, mc, base = got[:3]
+            _c, _w, wres = check_pair(f"wvc edge streams {profile}",
+                                      *k["wvc"], (t["wvc_words"], mc, base,
+                                                  cres), {}, True,
+                                      plain_cpu=True)
+            bits = np.asarray([8 * len(st.wvcbits) for st in b.states])
+            cut = np.arange(len(bits)) % WVC_CUT_EVERY == 0
+            least = wvc_min_bits(mc.cpu().numpy())
+            if not cut.any() or (least[cut] <= bits[cut]).any():
+                raise AssertionError(f"wvc edge streams {profile}: no row "
+                                     f"runs out ({least[cut]} bits read, "
+                                     f"{bits[cut]} in the .wvc)")
+            wres.update(cut_lanes=int(cut.sum()),
+                        cut_lane_bits=bits[cut].tolist(),
+                        cut_lane_least_bits_read=least[cut].tolist())
+            res["wvc"] = wres
         results[profile] = res
     print(json.dumps({"phase": "entropy_edge_streams_vs_plain_on_cpu",
                       "results": results}))
@@ -1114,6 +1152,28 @@ def phase_wvc(dev):
         "wvc", states, frames, dev, ("entropy_wvc", "wvc", "decorr_wvc"),
         check_exact(states, per_file, pcms, want_wvc=True, probe=False))
     return full, launches, (pairs[0], pcms[0])
+
+
+WVC_EDGE_SEED = 19
+
+
+def phase_wvc_edges(dev):
+    """The correction scan on EDGE_LANES wvc edge lanes
+    (testgen/edge.py::wvc_edge_lanes), stereo and mono, against its plain
+    version on a CPU copy: every output equal."""
+    from wvpk_torch.testgen.edge import wvc_edge_lanes
+
+    kernel, plain = _kernels()["wvc"]
+    results = {}
+    for mono in (False, True):
+        name = "mono" if mono else "stereo"
+        args = tuple(torch.from_numpy(a).to(dev) for a in wvc_edge_lanes(
+            EDGE_LANES, WVC_EDGE_SEED, mono))
+        _got, _want, res = check_pair(f"wvc edge lanes {name}", kernel,
+                                      plain, args, {}, True, plain_cpu=True)
+        results[name] = res
+    print(json.dumps({"phase": "wvc_edge_lanes_vs_plain_on_cpu",
+                      "lanes": EDGE_LANES, "results": results}))
 
 
 def phase_float_wvx(dev, wvx_futures):
@@ -1608,15 +1668,16 @@ def cpu_encode(name):
 
 def plain_encode_kernel(kind, arrays, kw):
     """A plain encode kernel on the CPU copy of a launch's inputs (numpy
-    arrays); returns its outputs as numpy arrays. Runs in a worker
-    process."""
+    arrays); returns its outputs as numpy arrays and its time (ms, host
+    clock). Runs in a worker process."""
     from wvpk_torch.ops.encode_cuda import hybrid_encode_plain
     from wvpk_torch.ops.encode_kernels import decorr_invert_warm
 
     torch.set_num_threads(1)
     fn = {"invert": decorr_invert_warm, "hybrid": hybrid_encode_plain}[kind]
+    t0 = time.perf_counter()
     out = _flat(fn)(*(torch.from_numpy(a) for a in arrays), **kw)
-    return [o.numpy() for o in out]
+    return [o.numpy() for o in out], 1000 * (time.perf_counter() - t0)
 
 
 def _flat(fn):
@@ -1643,12 +1704,14 @@ def _enc_kernels():
                        encode_cuda.hybrid_encode_plain)}
 
 
-def _enc_launches(lanes, kind, warm=False):
+def _enc_launches(lanes, kind, warm=False, seeded=False):
     """A kernel launch of the encoder's main path on `lanes` (a staged
     batch, device_encoder.stage_lanes): (args, keywords, need, out_need),
     the last two the bytes the function must move (check_pair): what the
     lanes hold (each lane's samples, the chain slots it runs), int32
-    samples and residuals at 4 bytes, the payload at its bytes."""
+    samples and residuals at 4 bytes, the payload at its bytes. `warm`:
+    the invert's warm launch (the first ENC_WARMUP steps, the final state
+    returned) from zero seeds, or with `seeded` from the staged seeds."""
     t = lanes.t
     L = len(lanes.starts)
     C = 1 if lanes.mono else 2
@@ -1657,21 +1720,26 @@ def _enc_launches(lanes, kind, warm=False):
              5: 0 if lanes.mono else 4 * nt, 6: 32 * nt,
              7: 0 if lanes.mono else 32 * nt}
     values = int(lanes.nsamp.sum()) * C
+    # every lane carries the spec's chain, as the encoder passes it
+    static = tuple(lanes.spec.terms)
     if kind == "invert":
         if warm:
             K = min(ENC_WARMUP, t["targets"].shape[0])
             z16 = torch.zeros_like(t["w0a"])
             z168 = torch.zeros_like(t["h0a"])
-            args = (t["targets"][:K], t["terms"], t["deltas"],
-                    t["num_terms"], z16, z16, z168, z168)
+            seeds = ((t["w0a"], t["w0b"], t["h0a"], t["h0b"]) if seeded
+                     else (z16, z16, z168, z168))
+            args = (t["targets"][:K].contiguous(), t["terms"], t["deltas"],
+                    t["num_terms"], *seeds)
             wvals = int(np.minimum(lanes.nsamp, K).sum()) * C
             state = {1: 4 * nt, 2: chain[5], 3: 32 * nt, 4: chain[7]}
-            return args, dict(mono=lanes.mono, with_state=True), \
+            return args, dict(mono=lanes.mono, with_state=True,
+                              static_terms=static), \
                 {0: 4 * wvals, **chain}, {0: 4 * wvals, **state}
         args = (t["targets"], t["terms"], t["deltas"], t["num_terms"],
                 t["w0a"], t["w0b"], t["h0a"], t["h0b"])
-        return args, dict(mono=lanes.mono), {0: 4 * values, **chain}, \
-            {0: 4 * values}
+        return args, dict(mono=lanes.mono, static_terms=static), \
+            {0: 4 * values, **chain}, {0: 4 * values}
     if kind == "words":
         res = t["residuals"]
         T = res.shape[0]
@@ -1686,9 +1754,8 @@ def _enc_launches(lanes, kind, warm=False):
             4: 24 * C * L, 5: 8 * C * L, 6: 8 * C * L, 7: 8 * C * L,
             8: 4 * L, 9: chain[4], 10: chain[5], 11: chain[6],
             12: chain[7]}
-    # every lane carries the spec's chain, as the encoder passes it
-    return args, dict(lanes.kw, static_terms=tuple(lanes.spec.terms)), \
-        need, {2: 4 * values}
+    return args, dict(lanes.kw, static_terms=static), need, \
+        {2: 4 * values}
 
 
 def _payload_need(out_need, got):
@@ -1710,9 +1777,23 @@ def compare_encode(name, kind, lanes, dev, warm=False):
     """An encode kernel at the main path's launch (all the track's lanes)
     against its plain version on the card, timed, then launched on its
     first 64 lanes, timed and held against the plain outputs of those
-    lanes. Returns (the kernel's outputs, {max_abs_err, ms, plain_ms,
-    bytes, bound_ms, ...})."""
+    lanes; the invert and the hybrid kernel also through their run-time
+    kernel on all the lanes. Each launch must run the kernel the main
+    path runs (the default chain's, with the final state for the warm
+    invert) or the run-time one. Returns (the kernel's outputs,
+    {max_abs_err, ms, plain_ms, bytes, bound_ms, ...})."""
+    from wvpk_torch.ops.encode_cuda import invert_instance
+
     kernel, plain = _enc_kernels()[kind]
+
+    def expect(ran, instance):
+        if kind == "invert":
+            instance = invert_instance(instance, warm)
+        if ran != {instance: 1}:
+            raise AssertionError(f"encode {name}: ran {ran}, expected the "
+                                 f"{instance} kernel")
+        return ran
+
     args, kw, need, out_need = _enc_launches(lanes, kind, warm)
     if kind != "invert":
         out_need = _payload_need(out_need, kernel(*args, **kw))
@@ -1720,8 +1801,9 @@ def compare_encode(name, kind, lanes, dev, warm=False):
                                 True, need=need, out_need=out_need)
     if kind != "invert":
         res["int64_lanes"] = int(kernel.wide_lanes)
-    if kind == "hybrid":
-        res["instances"] = _hybrid_instances(kernel, args, kw)
+    if kind != "words":
+        res["instances"] = expect(_chain_instances(kernel, args, kw),
+                                  "default")
     args64 = _lane_prefix(args, 64)
     got64 = _flat(kernel)(*args64, **kw)
     _sync()
@@ -1729,27 +1811,29 @@ def compare_encode(name, kind, lanes, dev, warm=False):
                slice_lanes=64, slice_max_abs_err=check_prefix(
                    name, want, got64),
                slice_ms=_events_ms(lambda: kernel(*args64, **kw), 5))
-    generic = None
-    if kind == "hybrid":
+    if kind != "words":
         # the run-time kernel (no static_terms) on the same lanes, held
-        # against the same plain outputs and timed
+        # against the same plain outputs (the final state too) and timed
         gkw = dict(kw, static_terms=None)
         ggot = _flat(kernel)(*args, **gkw)
         _sync()
-        generic = {"instances": _hybrid_instances(kernel, args, gkw),
+        generic = {"instances": expect(_chain_instances(kernel, args, gkw),
+                                       "generic"),
                    "max_abs_err": check_prefix(name + "[generic]", want,
                                                ggot),
                    "ms": _events_ms(lambda: kernel(*args, **gkw), 5),
                    "plain_ms": res["plain_ms"], "bytes": res["bytes"],
-                   "bound_ms": res["bound_ms"],
-                   "int64_lanes": int(kernel.wide_lanes)}
+                   "bound_ms": res["bound_ms"]}
+        if kind == "hybrid":
+            generic["int64_lanes"] = int(kernel.wide_lanes)
         res["generic"] = generic
     print(json.dumps({"phase": f"encode_{name}_kernel_vs_plain", **res}))
     return got, res
 
 
-def _hybrid_instances(kernel, args, kw) -> dict:
-    """The hybrid kernel instantiations one launch on `args` runs, by the
+def _chain_instances(kernel, args, kw) -> dict:
+    """The kernel instantiations (chain kernels or the run-time one) one
+    launch of the invert or the hybrid kernel on `args` runs, by the
     wrapper's per-instance counts."""
     before = dict(kernel.chain_launches)
     kernel(*args, **kw)
@@ -1773,20 +1857,61 @@ def stage_variant(pcm, dev, **options):
     return stage_lanes(pcm, spec, ENC_WARMUP, dev)
 
 
+def _set_chain(lanes, chain):
+    """Every lane of `lanes` on `chain` (in its first len(chain) slots):
+    the staged deltas and seeds stay, so the slots past a chain shorter
+    than the spec's hold seeds the final state must keep."""
+    t = lanes.t
+    t["terms"] = torch.zeros_like(t["terms"])
+    t["terms"][:, :len(chain)] = torch.tensor(
+        chain, dtype=t["terms"].dtype, device=t["terms"].device)
+    t["num_terms"] = torch.full_like(t["num_terms"], len(chain))
+
+
+# the invert's variant launches: (name, pcm, options, chain, kernel): the
+# spec's chain ("spec"), a chain of CHAINS with no preset, or one outside
+# (the mono chain with cross terms), each given as static_terms; None runs
+# the launch with static_terms=None (the run-time kernel, on the high
+# preset's stereo cross terms too). Each also runs as "<name>_state": the
+# first ENC_WARMUP steps from the staged seeds, with the final state.
+BENCH = (18, 17, 2)
+CROSS_MONO = (18, -1, 17, -2, 3)
+INVERT_VARIANTS = (
+    ("default", "head", {}, "spec", "default"),
+    ("fast", "head", dict(preset="fast"), "spec", "fast"),
+    ("high", "head", dict(preset="high"), "spec", "high"),
+    ("bench", "head", {}, BENCH, "bench"),
+    ("default_mono", "mono", {}, "spec", "default_mono"),
+    ("fast_mono", "mono", dict(preset="fast"), "spec", "fast_mono"),
+    ("high_mono", "mono", dict(preset="high"), "spec", "high_mono"),
+    ("bench_mono", "mono", {}, BENCH, "bench_mono"),
+    ("generic", "head", {}, None, "generic"),
+    ("generic_high", "head", dict(preset="high"), None, "generic"),
+    ("generic_mono", "mono", {}, None, "generic_mono"),
+    ("cross_mono", "mono", {}, CROSS_MONO, "generic_mono"))
+
+
 def submit_variants(pool, dev):
     """The encode kernels' other instantiations on 64 lanes: each launched
     on the card (timed) and its plain version queued on the worker pool
     on a CPU copy of the same inputs. Returns [(name, kernel outputs,
-    ms, future)]."""
+    ms, info, future)]."""
+    from wvpk_torch.ops import encode_cuda as ec
+
     head = track_head(ENC_SLICE_BLOCKS * ENC_BLOCK)
     mono = small_file("mono")[0][:ENC_SLICE_BLOCKS * ENC_BLOCK]
     kernels = _enc_kernels()
     jobs = []
-    # each hybrid variant with the kernel it must run: its preset's chain
+    # each variant with the kernel it must run: its preset's chain
     # (ops/decorr_cuda.py::CHAINS), or the run-time kernel when the launch
     # names no chain
     hyb = dict(hybrid=True, bitrate=ENC_BITRATE)
-    for name, kind, pcm, options, runs in (
+    pcms = {"head": head, "mono": mono}
+    inverts = [(f"invert_{name}{'_state' if state else ''}", "invert",
+                pcms[pcm], dict(options, chain=chain, state=state), runs)
+               for state in (False, True)
+               for name, pcm, options, chain, runs in INVERT_VARIANTS]
+    for name, kind, pcm, options, runs in [
             ("hybrid_balance", "hybrid", head,
              dict(hyb, hybrid_balance=True), "default"),
             ("hybrid_no_bitrate", "hybrid", head,
@@ -1800,24 +1925,28 @@ def submit_variants(pool, dev):
              "fast_mono"),
             ("hybrid_high_mono", "hybrid", mono, dict(hyb, preset="high"),
              "high_mono"),
-            ("hybrid_generic", "hybrid", head, hyb, "generic"),
-            ("invert_mono", "invert", mono, {}, None),
-            ("invert_high", "invert", head, dict(preset="high"), None)):
+            ("hybrid_generic", "hybrid", head, hyb, "generic")] + inverts:
+        chain = options.pop("chain", "spec")
+        state = options.pop("state", False)
+        if kind == "hybrid" and runs == "generic":
+            chain = None
         lanes = stage_variant(pcm, dev, **options)
-        args, kw, need, out_need = _enc_launches(lanes, kind)
-        if runs == "generic":
-            kw = dict(kw, static_terms=None)
+        if chain not in ("spec", None):
+            _set_chain(lanes, chain)
+        args, kw, need, out_need = _enc_launches(lanes, kind, warm=state,
+                                                 seeded=True)
+        if chain != "spec":
+            kw = dict(kw, static_terms=chain)
         got = _flat(kernels[kind][0])(*args, **kw)
         _sync()
-        info = {}
         if kind != "invert":
             out_need = _payload_need(out_need, kernels[kind][0](*args, **kw))
-            info["instances"] = _hybrid_instances(kernels[kind][0], args,
-                                                  kw)
-            if info["instances"] != {runs: 1}:
-                raise AssertionError(f"encode {name}: ran "
-                                     f"{info['instances']}, expected the "
-                                     f"{runs} kernel")
+        if kind == "invert":
+            runs = ec.invert_instance(runs, state)
+        info = {"instances": _chain_instances(kernels[kind][0], args, kw)}
+        if info["instances"] != {runs: 1}:
+            raise AssertionError(f"encode {name}: ran {info['instances']}, "
+                                 f"expected the {runs} kernel")
         nbytes = _moved_bytes(args, got, need, out_need)
         ms = _events_ms(lambda: kernels[kind][0](*args, **kw), 5)
         arrays = [a.cpu().numpy() for a in args]
@@ -1833,16 +1962,19 @@ def check_variants(jobs):
     out = {}
     for name, got, ms, info, fut in jobs:
         t0 = time.perf_counter()
-        want = [torch.from_numpy(w) for w in fut.result()]
+        want, plain_ms = fut.result()
+        want = [torch.from_numpy(w) for w in want]
         for k, (w, g) in enumerate(zip(want, got)):
             if not torch.equal(w, g.cpu()):
                 raise AssertionError(f"encode {name}: kernel != plain "
                                      f"version, output {k}")
-        out[name] = {**info, "ms": ms, "max_abs_err": max(
-            _max_abs_err(w, g.cpu()) for w, g in zip(want, got)),
-            "waited_s": time.perf_counter() - t0}
+        out[name] = {**info, "ms": ms, "plain_ms": plain_ms,
+                     "plain_device": "cpu", "max_abs_err": max(
+                         _max_abs_err(w, g.cpu()) for w, g in zip(want, got)),
+                     "waited_s": time.perf_counter() - t0}
     print(json.dumps({"phase": "encode_variants_64_lanes_vs_plain_on_cpu",
                       "results": out}))
+    return out
 
 
 # the encode edge lanes (testgen/edge.py::encode_edge_lanes): each kind
@@ -1852,6 +1984,7 @@ ENC_EDGE_CASES = (("words", None), ("words_mono", None),
                   ("hybrid", (True, True)), ("hybrid_mono", (False, False)),
                   ("hybrid_mono", (True, False)))
 ENC_EDGE_SEED = 17
+INVERT_EDGE_KINDS = ("hybrid", "hybrid_mono")
 
 
 def _edge_kw(kind, flags):
@@ -1875,11 +2008,70 @@ def plain_encode_edge(kind, flags):
     return [o.numpy() for o in fn(*args, **_edge_kw(kind, flags))]
 
 
+def plain_invert_edge(kind):
+    """The invert's plain version on the encode edge lanes of `kind` (a
+    hybrid kind: their targets, chains and seeds), with the final state;
+    its outputs as numpy arrays. Runs in a worker process."""
+    from wvpk_torch.ops.encode_kernels import decorr_invert_warm
+    from wvpk_torch.testgen.edge import encode_edge_lanes
+
+    torch.set_num_threads(1)
+    a = [torch.from_numpy(x)
+         for x in encode_edge_lanes(kind, EDGE_LANES, ENC_EDGE_SEED)]
+    out = _flat(decorr_invert_warm)(*a[:4], *a[9:], with_state=True,
+                                     mono=kind.endswith("_mono"))
+    return [o.numpy() for o in out]
+
+
+def invert_edges(dev, jobs):
+    """The hybrid edge lanes' targets, chains and seeds through the
+    invert, with and without the final state, by the chain's kernel
+    (static_terms) and the run-time kernel, against the plain version,
+    which ran in the worker pool."""
+    from wvpk_torch.ops.encode_cuda import decorr_invert_cuda as inv
+    from wvpk_torch.ops.encode_cuda import invert_instance
+    from wvpk_torch.testgen.edge import ENCODE_EDGE_CHAIN, encode_edge_lanes
+
+    out = {}
+    for kind in INVERT_EDGE_KINDS:
+        mono = kind.endswith("_mono")
+        a = [torch.from_numpy(x).to(dev)
+             for x in encode_edge_lanes(kind, EDGE_LANES, ENC_EDGE_SEED)]
+        want = [torch.from_numpy(w) for w in jobs[("invert", kind)].result()]
+        rows = []
+        for with_state in (False, True):
+            for st, runs in ((ENCODE_EDGE_CHAIN,
+                              "default_mono" if mono else "default"),
+                             (None, "generic_mono" if mono else "generic")):
+                kw = dict(mono=mono, with_state=with_state, static_terms=st)
+                runs = invert_instance(runs, with_state)
+                before = dict(inv.chain_launches)
+                got = _flat(inv)(*a[:4], *a[9:], **kw)
+                _sync()
+                ran = {k: v - before[k] for k, v in inv.chain_launches.items()
+                       if v != before[k]}
+                if ran != {runs: 1}:
+                    raise AssertionError(f"invert edge {kind}: ran {ran}, "
+                                         f"expected the {runs} kernel")
+                for k, (w, g) in enumerate(zip(want, got)):
+                    if not torch.equal(w, g.cpu()):
+                        raise AssertionError(
+                            f"invert edge {kind} ({ran}, with_state="
+                            f"{with_state}): kernel != plain, output {k}")
+                rows.append({"with_state": with_state, "instances": ran,
+                             "outputs": len(got), "max_abs_err": max(
+                                 _max_abs_err(w, g.cpu())
+                                 for w, g in zip(want, got))})
+        out[kind] = rows
+    return out
+
+
 def phase_encode_edges(dev, jobs):
     """Each word coder on the 64 encode edge lanes of each kind and
     profile, held against its plain version, which ran in the worker pool;
     the hybrid lanes through their chain's kernel and the run-time kernel.
-    The int64 body must run exactly the lanes int64_lanes names."""
+    The int64 body must run exactly the lanes int64_lanes names. Then the
+    hybrid lanes' chain arguments through the invert (invert_edges)."""
     from wvpk_torch.ops import encode_cuda as ec
     from wvpk_torch.testgen.edge import ENCODE_EDGE_CHAIN, encode_edge_lanes
 
@@ -1921,26 +2113,30 @@ def phase_encode_edges(dev, jobs):
                                          for w, x in zip(want, g))}
                      for ran, g, wide in got]
     print(json.dumps({"phase": "encode_edge_lanes_vs_plain_on_cpu",
-                      "lanes": EDGE_LANES, "results": out}))
+                      "lanes": EDGE_LANES, "results": out,
+                      "invert": invert_edges(dev, jobs)}))
 
 
 def _enc_counts(reset=False):
     """The encode wrappers' launch counts, the invert kernel's split into
-    its main and its warm (with_state) launches; with `reset` all set to
-    0 first."""
+    its main and its warm (with_state) launches, and the invert and
+    hybrid kernels' by instantiation ("encode_invert:<chain>"); with
+    `reset` all set to 0 first."""
     from wvpk_torch.ops import encode_cuda as ec
 
     inv, hyb = ec.decorr_invert_cuda, ec.hybrid_encode_cuda
     if reset:
         inv.launches = inv.warm_launches = 0
         ec.encode_words_cuda.launches = hyb.launches = 0
-        hyb.chain_launches = dict.fromkeys(hyb.chain_launches, 0)
+        for fn in (inv, hyb):
+            fn.chain_launches = dict.fromkeys(fn.chain_launches, 0)
     return {"encode_invert": inv.launches - inv.warm_launches,
             "encode_invert[warm]": inv.warm_launches,
             "encode_words": ec.encode_words_cuda.launches,
             "encode_hybrid": hyb.launches,
-            **{f"encode_hybrid:{k}": n for k, n in hyb.chain_launches.items()
-               if n}}
+            **{f"{key}:{k}": n
+               for key, fn in (("encode_invert", inv), ("encode_hybrid", hyb))
+               for k, n in fn.chain_launches.items() if n}}
 
 
 def encode_e2e(name, track, dev, per_call, **options):
@@ -2075,20 +2271,24 @@ def phase_encode(dev, pool, cpu_jobs):
                         ENC_WARMUP, dev)
     _got, hybrid = compare_encode("hybrid", "hybrid", lanes, dev)
     lanes = None
-    check_variants(variants)
+    variants = check_variants(variants)
 
+    # both inverts of a lossless call and the warm one of a hybrid call run
+    # the default chain's kernels (the warm one with the final state),
+    # never a run-time one
     wv, info = encode_e2e("lossless", track, dev, {
-        "encode_invert": 1, "encode_invert[warm]": 1, "encode_words": 1})
+        "encode_invert": 1, "encode_invert[warm]": 1,
+        "encode_invert:default": 1, "encode_invert:default[state]": 1,
+        "encode_words": 1})
     info.update(check_encoded(wv, dev, track))
     print(json.dumps({"phase": "encode_lossless_encode_device", **info}))
     l_launches = info["launches"]
     print(json.dumps({"phase": "encode_lossless_profiled_call",
                       **profile_encode(track, dev)}))
-    # the hybrid call runs the default chain's kernel, never the run-time
-    # one
     wv, info = encode_e2e("hybrid", track, dev, {
-        "encode_invert[warm]": 1, "encode_hybrid": 1,
-        "encode_hybrid:default": 1}, hybrid=True, bitrate=ENC_BITRATE)
+        "encode_invert[warm]": 1, "encode_invert:default[state]": 1,
+        "encode_hybrid": 1, "encode_hybrid:default": 1}, hybrid=True,
+        bitrate=ENC_BITRATE)
     info.update(check_encoded(wv, dev))
     print(json.dumps({"phase": "encode_hybrid_encode_device", **info}))
     h_launches = info["launches"]
@@ -2113,14 +2313,9 @@ def phase_encode(dev, pool, cpu_jobs):
     print(json.dumps({"phase": "encode_small_files_cuda_equals_cpu",
                       "files": small}))
     rows = {"invert_warm": warm, "invert": main, "words": words,
-            "hybrid": hybrid}
-    return rows, {"encode_invert": l_launches["encode_invert"],
-                  "encode_invert[warm]": l_launches["encode_invert[warm]"]
-                  + h_launches["encode_invert[warm]"],
-                  "encode_words": l_launches["encode_words"],
-                  "encode_hybrid": h_launches["encode_hybrid"],
-                  "encode_hybrid:generic": h_launches.get(
-                      "encode_hybrid:generic", 0)}
+            "hybrid": hybrid, "variants": variants}
+    return rows, {k: l_launches.get(k, 0) + h_launches.get(k, 0)
+                  for k in {*l_launches, *h_launches}}
 
 
 def _small_wav(pcm, fmt):
@@ -2202,12 +2397,21 @@ def ptxas_table(log: str) -> list[dict]:
     return rows
 
 
+# the registers (of a thread's 255) past which a build line names a kernel:
+# a longer chain could spill
+FLAG_REGISTERS = 224
+
+
 def print_build(phase, names, seconds):
     """The build phase's line for the sources `names`: nvcc's seconds
     (from the start of the build) and what ptxas said of each kernel;
-    every compiled decorrelation chain, both word coders and every hybrid
-    chain kernel must have neither stack nor spills to be in registers
-    (the run-time kernels keep their chains in local memory)."""
+    every compiled decorrelation chain, both word coders, every hybrid
+    and invert chain kernel (16 of the latter) and both correction-scan
+    kernels must have neither stack nor spills to be in registers (the
+    run-time kernels keep their chains in local memory), or the run
+    fails. The registers of the invert's and the correction scan's
+    instances are listed by name, and every kernel above FLAG_REGISTERS
+    is named."""
     from wvpk_torch import _build
 
     ptxas = {k: ptxas_table(_build.ptxas_log[k]) for k in names
@@ -2215,19 +2419,36 @@ def print_build(phase, names, seconds):
     line = {"phase": phase, "seconds": seconds,
             "nvcc_seconds": {k: v for k, v in _build.build_seconds.items()
                              if k in names}}
-    for key, src, prefixes in (
-            ("decorr_chain", ("decorr",), ("decorr_chain",)),
+    bad = []
+    for key, src, prefixes, count in (
+            ("decorr_chain", ("decorr",), ("decorr_chain",), None),
             ("encode_coder", ("encode_words", "encode_hybrid"),
-             ("words_kernel", "hybrid_chain"))):
+             ("words_kernel", "hybrid_chain"), None),
+            ("invert_chain", ("encode_invert",), ("invert_chain",), 16),
+            ("wvc", ("wvc",), ("wvc_kernel",), 2)):
+        if not any(k in ptxas for k in src):
+            continue
         rows = [r for k in src for r in ptxas.get(k, [])
                 if r["kernel"].startswith(prefixes)]
-        if rows:
-            line[f"{key}_kernels"] = len(rows)
-            line[f"{key}s_without_stack_or_spills"] = all(
-                r.get("stack") == 0 and r.get("spill_stores") == 0
-                for r in rows)
+        line[f"{key}_kernels"] = len(rows)
+        clean = all(r.get("stack") == 0 and r.get("spill_stores") == 0
+                    and r.get("spill_loads") == 0 for r in rows)
+        line[f"{key}s_without_stack_or_spills"] = clean
+        if not clean or not rows or count not in (None, len(rows)):
+            bad.append(key)
+    for key, src in (("invert", "encode_invert"), ("wvc", "wvc")):
+        if src in ptxas:
+            line[f"{key}_registers_stack"] = {
+                r["kernel"]: [r.get("registers"), r.get("stack")]
+                for r in ptxas[src]}
+    line[f"kernels_above_{FLAG_REGISTERS}_registers"] = {
+        r["kernel"]: r["registers"] for rows in ptxas.values() for r in rows
+        if r.get("registers", 0) > FLAG_REGISTERS}
     line["ptxas"] = ptxas
     print(json.dumps(line))
+    if bad:
+        raise AssertionError(f"ptxas: a stack frame or spills, or a kernel "
+                             f"missing, in {bad}")
 
 
 def _wav(pcm, bits, nbytes, fmt_tag=1, body=None):
@@ -2257,10 +2478,10 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
 
-    # the hybrid encode source builds longest (a kernel per chain and
-    # profile) and the encode phase is the first to need it: its nvcc runs
-    # beside the decode phases and is joined before that phase
-    late, late_errors = ("encode_hybrid",), []
+    # the encode sources with a kernel per chain build longest and the
+    # encode phase is the first to need them: their nvcc runs beside the
+    # decode phases and is joined before that phase
+    late, late_errors = ("encode_hybrid", "encode_invert"), []
 
     def build_late():
         try:
@@ -2310,6 +2531,7 @@ def main() -> int:
         mark("mixed")
         hybrid, h_launches = phase_hybrid(dev)
         wvc, c_launches, ((c_wv, c_wvc), c_pcm) = phase_wvc(dev)
+        phase_wvc_edges(dev)
         mark("hybrid_wvc")
         wvx, x_launches, (f_file, f_pcm, f_exp) = phase_float_wvx(
             dev, wvx_futures)
@@ -2321,11 +2543,13 @@ def main() -> int:
         late_build.join()
         if late_errors:
             raise late_errors[0]
-        print_build("build_encode_hybrid", late, time.perf_counter() - t0)
+        print_build("build_encode_chains", late, time.perf_counter() - t0)
         # the encode edge lanes' plain versions queue behind the decode
         # phases' work, which the card waits for
         enc_edge_jobs = {case: pool.submit(plain_encode_edge, *case)
                          for case in ENC_EDGE_CASES}
+        enc_edge_jobs.update({("invert", kind): pool.submit(
+            plain_invert_edge, kind) for kind in INVERT_EDGE_KINDS})
         enc, e_launches = phase_encode(dev, pool, cpu_encodes)
         mark("encode")
         phase_encode_edges(dev, enc_edge_jobs)
@@ -2394,13 +2618,32 @@ def main() -> int:
          e_launches["encode_invert"], enc["invert"]),
         ("encode_invert[warm]", "encode_invert.cu", "encode_pallas.py:98",
          e_launches["encode_invert[warm]"], enc["invert_warm"]),
+        ("encode_invert[generic]", "encode_invert.cu", "encode_pallas.py:98",
+         e_launches.get("encode_invert:generic", 0),
+         enc["invert"]["generic"]),
+        ("encode_invert[warm, generic]", "encode_invert.cu",
+         "encode_pallas.py:98",
+         e_launches.get("encode_invert:generic[state]", 0),
+         enc["invert_warm"]["generic"]),
         ("encode_words", "encode_words.cu", "encode_pallas.py:373",
          e_launches["encode_words"], enc["words"]),
         ("encode_hybrid", "encode_hybrid.cu", "encode_pallas.py:566",
          e_launches["encode_hybrid"], enc["hybrid"]),
         ("encode_hybrid[generic]", "encode_hybrid.cu", "encode_pallas.py:566",
-         e_launches["encode_hybrid:generic"], enc["hybrid"]["generic"]),
+         e_launches.get("encode_hybrid:generic", 0),
+         enc["hybrid"]["generic"]),
     ]
+    # the encode kernels' other instantiations on 64 lanes; launches: the
+    # instantiation's in the encode_device runs (0 for those the track's
+    # calls do not run)
+    for name, r in enc["variants"].items():
+        kind, _, variant = name.partition("_")
+        ((inst, _n),) = r["instances"].items()
+        src, rep = {"invert": ("encode_invert.cu", "encode_pallas.py:98"),
+                    "hybrid": ("encode_hybrid.cu", "encode_pallas.py:566")
+                    }[kind]
+        rows.append((f"encode_{kind}[{variant}, 64 lanes]", src, rep,
+                     e_launches.get(f"encode_{kind}:{inst}", 0), r))
     # no PyTorch or CUDA library call computes these coders: library_ms is
     # null; the bound is the bytes moved (integer work only)
     # dsd_high's and the word coders' rows also give the lanes their int64

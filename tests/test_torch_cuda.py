@@ -38,8 +38,8 @@ from wvpk_torch.ref import decode_block
 from wvpk_torch.testgen import EncodeSpec, encode_dsd_file, encode_file, \
     encode_multichannel
 from wvpk_torch.testgen.edge import DSD_EDGE_PROFILES, EDGE_PROFILES, \
-    ENCODE_EDGE_CHAIN, ENCODE_EDGE_KINDS, dsd_edge_states, \
-    encode_edge_lanes, edge_states
+    ENCODE_EDGE_CHAIN, ENCODE_EDGE_KINDS, WVC_CUT_EVERY, dsd_edge_states, \
+    encode_edge_lanes, edge_states, wvc_edge_lanes, wvc_min_bits
 from wvpk_torch.testgen.encoder import encode_blocks
 
 pytestmark = pytest.mark.cuda
@@ -174,6 +174,64 @@ def test_entropy_wvc_and_corrections_kernels_match_plain(cuda, name):
     res, mc, base = want[:3]
     corr = wvc_corrections_cuda(t["wvc_words"], mc, base, res)
     assert torch.equal(corr, wvc_corrections(t["wvc_words"], mc, base, res))
+
+
+@pytest.mark.parametrize("profile", ["wvc", "wvc_mono"])
+def test_wvc_kernel_edge_streams_match_plain(cuda, profile):
+    """The wvc profiles' 64 edge streams (testgen/edge.py::edge_states,
+    the lanes whose .wvc is cut short among them): the entropy kernel's
+    wvc outputs through the correction kernel, exact against the plain
+    scan; every cut lane's codes need more bits than its .wvc holds, so
+    its cursor runs past its stream into the row's fill."""
+    (b,) = group_blocks(edge_states(profile, 64, seed=3))
+    t = bucket_tensors(b, cuda)
+    kw = _kw(b.profile)
+    del kw["hybrid"]
+    res, mc, base, _broke, _ndec = entropy_decode_wvc_cuda(
+        *_entropy_args(t), **kw)
+    got = wvc_corrections_cuda(t["wvc_words"], mc, base, res)
+    want = wvc_corrections(t["wvc_words"], mc, base, res)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
+    bits = np.asarray([8 * len(st.wvcbits) for st in b.states])
+    cut = np.arange(len(bits)) % WVC_CUT_EVERY == 0
+    assert (wvc_min_bits(mc.cpu().numpy())[cut] > bits[cut]).all()
+
+
+def test_wvc_wrapper_refuses(cuda):
+    """What the correction kernel cannot take raises before a launch: rows
+    of 2^26 words or more (its 32-bit bit cursor), three channels, rows of
+    fewer than 2 words, CPU tensors."""
+    def launch(W, C=2, T=4, dev=cuda):
+        words = torch.zeros((1, W), dtype=torch.int32, device=dev)
+        vals = torch.zeros((T, 1, C), dtype=torch.int32, device=dev)
+        return wvc_corrections_cuda(words, vals, vals, vals)
+
+    launches = wvc_corrections_cuda.launches
+    for case, match in (((1 << 26,), "32-bit"), ((8, 3), "channels"),
+                        ((1,), "shape"),
+                        ((8, 2, 4, torch.device("cpu")), "CUDA")):
+        with pytest.raises(ValueError, match=match):
+            launch(*case)
+    assert wvc_corrections_cuda.launches == launches
+    launch((1 << 26) - 64, C=1, T=1)
+    torch.cuda.synchronize()
+    assert wvc_corrections_cuda.launches == launches + 1
+
+
+@pytest.mark.parametrize("seed", [21, 22])
+@pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
+def test_wvc_kernel_edge_lanes_match_plain(cuda, mono, seed):
+    """The correction scan's 64 edge lanes (testgen/edge.py::
+    wvc_edge_lanes: maxcodes of every bit length 0-31 and negative, codes
+    on both sides of extras, bit length 31's forced extra bit, negative
+    residuals, base + code past int32, rows read past their last word's
+    start) through the kernel, exact against the plain scan."""
+    args = _on(cuda, *wvc_edge_lanes(64, seed=seed, mono=mono))
+    got = wvc_corrections_cuda(*args)
+    want = wvc_corrections(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
 
 
 def _decorr_inputs(seed, T, L, mono, big=False):
@@ -674,22 +732,54 @@ def _on(device, *arrays):
             for a in arrays]
 
 
-@pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
+# the chains of the invert kernel test: "random" (a chain a lane, every
+# term class, cross terms in mono chains too: the run-time kernel), each
+# compiled chain of CHAINS given as static_terms, a chain outside CHAINS
+# and a mono chain with cross terms (static_terms names them: the run-time
+# kernel)
+INVERT_CHAINS = ([("random", False), ("random", True)]
+                 + [(name, m) for name, m, _t in CHAINS]
+                 + [("outside", False), ("outside", True),
+                    ("cross_mono", True)])
+_INVERT_OUTSIDE = {"outside": {False: (5, 1, -3, 17), True: (5, 1, 17)},
+                   "cross_mono": {True: (18, -1, 17, -2, 3)}}
+
+
+@pytest.mark.parametrize("chain,mono", INVERT_CHAINS,
+                         ids=[f"{c}{'_m' if m else ''}"
+                              for c, m in INVERT_CHAINS])
 @pytest.mark.parametrize("with_state", [False, True],
                          ids=["main", "warm_state"])
-def test_encode_invert_kernel_matches_plain(cuda, mono, with_state):
-    """Every term class (cross terms in mono chains too), 0-16 passes a
-    lane, random seeds, values up to 2^20: 300 lanes."""
-    from wvpk_torch.ops.encode_cuda import decorr_invert_cuda
+def test_encode_invert_kernel_matches_plain(cuda, chain, mono, with_state):
+    """Residuals and final state of the invert kernel against the plain
+    scan: random chains of 0-16 passes ("random"), or every lane on one
+    chain given as static_terms (its compiled kernel for each of CHAINS,
+    the run-time kernel for the others); random seeds and deltas, values
+    up to 2^20, 300 lanes of 97 steps (not a multiple of the ring's 8 or
+    the staging tile's 32). The launch counts the kernel that ran."""
+    from wvpk_torch.ops.encode_cuda import decorr_invert_cuda, \
+        invert_instance
     from wvpk_torch.ops.encode_kernels import decorr_invert_warm
 
-    rng = np.random.default_rng(40 + 2 * mono + with_state)
-    T, L, C = 96, 300, 1 if mono else 2
+    named = {n: t for n, _m, t in CHAINS}
+    rng = np.random.default_rng(40 + 2 * len(chain) + mono + 4 * with_state)
+    T, L, C = 97, 300, 1 if mono else 2
     targ = rng.integers(-2**20, 2**20, (T, L, C)).astype(np.int32)
-    args = _on(cuda, targ, *_chains(rng, L, mono, pool=ALL_TERMS),
-               *_seeds(rng, L))
+    terms, deltas, nt = _chains(rng, L, mono, pool=ALL_TERMS)
+    static = None
+    if chain != "random":
+        static = named.get(chain) or _INVERT_OUTSIDE[chain][mono]
+        terms[:] = 0
+        terms[:, :len(static)] = static
+        deltas[:] = 0
+        deltas[:, :len(static)] = rng.integers(0, 8, (L, len(static)))
+        nt[:] = len(static)
+    args = _on(cuda, targ, terms, deltas, nt, *_seeds(rng, L))
     kw = dict(mono=mono, with_state=with_state)
-    got = decorr_invert_cuda(*args, **kw)
+    ran = invert_instance(chain if chain in named else "generic_mono"
+                          if mono else "generic", with_state)
+    before = dict(decorr_invert_cuda.chain_launches)
+    got = decorr_invert_cuda(*args, static_terms=static, **kw)
     want = decorr_invert_warm(*args, **kw)
     torch.cuda.synchronize()
     if not with_state:
@@ -697,6 +787,44 @@ def test_encode_invert_kernel_matches_plain(cuda, mono, with_state):
     assert torch.equal(want[0], got[0])
     for w, g in zip(want[1], got[1]):
         assert torch.equal(w, g)
+    assert {k: v - before[k] for k, v in
+            decorr_invert_cuda.chain_launches.items() if v != before[k]} \
+        == {ran: 1}
+
+
+@pytest.mark.parametrize("with_state", [False, True],
+                         ids=["main", "warm_state"])
+@pytest.mark.parametrize("kind", ["hybrid", "hybrid_mono"])
+def test_encode_invert_kernel_edge_lanes_match_plain(cuda, kind,
+                                                     with_state):
+    """The hybrid encode edge lanes' targets, chains and seeds
+    (testgen/edge.py::encode_edge_lanes: residuals at INT32_MIN/MAX,
+    silence, every lane on ENCODE_EDGE_CHAIN, one in four with random
+    seeds) through the invert: the chain's kernel (static_terms) and the
+    run-time kernel, exact against the plain scan."""
+    from wvpk_torch.ops.encode_cuda import decorr_invert_cuda, \
+        invert_instance
+    from wvpk_torch.ops.encode_kernels import decorr_invert_warm
+
+    mono = kind.endswith("_mono")
+    a = _on(cuda, *encode_edge_lanes(kind, 64, seed=7))
+    args = a[:4] + a[9:]
+    kw = dict(mono=mono, with_state=with_state)
+    want = decorr_invert_warm(*args, **kw)
+    want = (want, ()) if not with_state else want
+    m = "_mono" if mono else ""
+    for static, ran in ((ENCODE_EDGE_CHAIN, "default" + m),
+                        (None, "generic" + m)):
+        before = dict(decorr_invert_cuda.chain_launches)
+        got = decorr_invert_cuda(*args, static_terms=static, **kw)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in
+                decorr_invert_cuda.chain_launches.items()
+                if v != before[k]} == {invert_instance(ran, with_state): 1}
+        got = (got, ()) if not with_state else got
+        assert torch.equal(want[0], got[0])
+        for w, g in zip(want[1], got[1]):
+            assert torch.equal(w, g)
 
 
 def _residual_words(rng, kind, W, L):

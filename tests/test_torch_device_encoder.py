@@ -8,6 +8,7 @@ numbers."""
 
 import numpy as np
 import pytest
+import torch
 
 import wvpk.encode as jax_encode
 from wvpk.engine.device_encoder import \
@@ -223,3 +224,41 @@ def test_payload_overflow_raises(monkeypatch, hybrid):
     with pytest.raises(RuntimeError, match="overflows its capacity"):
         port_encode.encode_device(noisy(300, 2, 95), device="cpu",
                                   block_samples=256, hybrid=hybrid)
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["lossless", "hybrid"])
+@pytest.mark.parametrize("preset,mono", [(p, m) for p in ("fast", "default",
+                                                          "high")
+                                         for m in (False, True)])
+def test_device_encoder_names_the_spec_chain_to_the_invert(
+        monkeypatch, preset, mono, hybrid):
+    """The device encoder hands each invert call its spec's chain as
+    static_terms (every lane carries it), as wvpk's device encoder does at
+    both of its calls: a lossless encode the warm seeding scan (with its
+    final state) and the main invert, a hybrid encode the warm one only
+    (the hybrid scan inverts for itself). The chain runs its compiled
+    kernel on the card unless it is mono with cross terms."""
+    from wvpk_torch.encode import build_spec
+    from wvpk_torch.engine import device_encoder as de
+    from wvpk_torch.ops.decorr_cuda import GENERIC, lane_runs
+    from wvpk_torch.ops.encode_select import invert_any
+
+    seen = []
+
+    def spy(*args, static_terms=None, with_state=False, **kw):
+        seen.append((static_terms, with_state))
+        return invert_any(*args, static_terms=static_terms,
+                          with_state=with_state, **kw)
+
+    monkeypatch.setattr(de, "invert_any", spy)
+    rng = np.random.default_rng(17)
+    pcm = np.round(rng.normal(0, 900, (700, 1 if mono else 2))).astype(
+        np.int64)
+    opts = dict(hybrid=True, bitrate=400) if hybrid else {}
+    spec = build_spec(pcm, block_samples=256, preset=preset, **opts)
+    de.scan_lanes(de.stage_lanes(pcm, spec, 64, torch.device("cpu")))
+    chain = tuple(spec.terms)
+    assert len(chain) > 0
+    assert seen == [(chain, True)] + ([] if hybrid else [(chain, False)])
+    assert (lane_runs(3, mono, chain)[0][0] == GENERIC) == (
+        mono and any(t < 0 for t in chain))

@@ -19,9 +19,13 @@ from wvpk.ops.encode_kernels import decorr_invert_warm as jax_invert
 from wvpk.ops.encode_kernels import entropy_encode_words as jax_words
 from wvpk.ops.encode_kernels import hybrid_encode_scan as jax_hybrid
 from wvpk.testgen.encoder import _crc_fast
-from wvpk_torch.ops.encode_cuda import decorr_invert_cuda, \
-    encode_words_cuda, encode_words_plain, hybrid_encode_cuda, \
-    hybrid_encode_plain, int64_lanes
+from wvpk.ops.encode_select import invert_any as jax_invert_any
+from wvpk_torch.ops.decorr_cuda import CHAINS as TABLE_CHAINS
+from wvpk_torch.ops.decorr_cuda import GENERIC, INSTANCES, instance_name, \
+    lane_runs
+from wvpk_torch.ops.encode_cuda import INVERT_INSTANCES, chain_kernel, \
+    decorr_invert_cuda, encode_words_cuda, encode_words_plain, \
+    hybrid_encode_cuda, hybrid_encode_plain, int64_lanes, invert_instance
 from wvpk_torch.ops.encode_kernels import decorr_invert_warm, \
     entropy_encode_words, hybrid_encode_scan
 from wvpk_torch.ops.encode_pack import finish_crc, hybrid_crc_acc, \
@@ -616,3 +620,78 @@ def test_scan_lanes_names_the_spec_chain(monkeypatch, preset, mono):
                       preset=preset)
     de.scan_lanes(de.stage_lanes(pcm, spec, 64, torch.device("cpu")))
     assert seen == [tuple(spec.terms)] and len(spec.terms) > 0
+
+
+# the chains of the static_terms tests: each of CHAINS (the CUDA invert's
+# compiled kernels), a stereo and a mono chain outside it, and a mono chain
+# with cross terms (wvpk leaves that one to its XLA scan)
+STATIC_CHAINS = list(TABLE_CHAINS) + [
+    ("outside", False, (5, 1, -3, 17)), ("outside_mono", True, (5, 1, 17)),
+    ("cross_mono", True, (18, -1, 17, -2, 3))]
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["fresh", "warm"])
+@pytest.mark.parametrize("k", range(len(STATIC_CHAINS)),
+                         ids=[name for name, _m, _t in STATIC_CHAINS])
+def test_invert_any_static_terms_matches_wvpk(k, warm):
+    """The port's invert_any takes wvpk's static_terms and returns what
+    wvpk's invert_any returns with them, the residuals alone and with the
+    final state. wvpk runs with encode_kernel="pallas": its Pallas invert
+    (interpret mode on the CPU) for every static chain but a mono one with
+    cross terms, which takes its XLA scan. Seeds: zeros ("fresh") or
+    random in the chain's slots and zeros past it (the Pallas kernel
+    returns zeros there, the port the seeds). Without static_terms the
+    port gives the same residuals."""
+    from wvpk.config import set_options
+
+    _name, mono, chain = STATIC_CHAINS[k]
+    targ, terms, deltas, nt, *seeds = invert_inputs(
+        400 + 2 * k + warm, chain, mono, warm, T=64, L=8)
+    for a in seeds:
+        a[:, len(chain):] = 0
+    args = (targ, terms, deltas, nt, *seeds)
+    kw = dict(mono=mono, static_terms=chain)
+    try:
+        set_options(encode_kernel="pallas")
+        want = jax_invert_any(*args, **kw)
+        want_res, want_state = jax_invert_any(*args, with_state=True, **kw)
+    finally:
+        set_options(encode_kernel="auto")
+    got = invert_any(*tt(*args), **kw)
+    got_res, got_state = invert_any(*tt(*args), with_state=True, **kw)
+    blind = invert_any(*tt(*args), mono=mono)
+    for w, g in ((want, got), (want_res, got_res), (want, blind)):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    for w, g in zip(want_state, got_state):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+# static_terms -> the kernel decorr_invert_cuda launches: each chain of
+# CHAINS its own, any other (outside the table, mono with cross terms,
+# empty, None) the run-time kernel
+INVERT_RUNS = [(t, m, name) for name, m, t in TABLE_CHAINS] + [
+    ((18, 17, 2, 1), False, "generic"), ((5, 1), True, "generic_mono"),
+    ((18, 18, 18, -2, 2, 3, 5, -1, 17, 4), True, "generic_mono"),
+    ((17, -1), True, "generic_mono"), ((), False, "generic"),
+    (None, False, "generic"), (None, True, "generic_mono")]
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["main", "state"])
+@pytest.mark.parametrize("static_terms,mono,ran", INVERT_RUNS)
+def test_invert_cuda_runs_the_chain_kernel(static_terms, mono, ran,
+                                           with_state):
+    """The kernel decorr_invert_cuda launches for a static_terms, by the
+    wrapper's own choice: encode_cuda.chain_kernel, the helper the wrapper
+    (and hybrid_encode_cuda) calls to unpack decorr_cuda.lane_runs, must
+    give one run over all the lanes and the kernel's name, and
+    invert_instance the counter the launch adds to (one of the invert's 20
+    kernels). Checked here without a card: the card tests launch each
+    kernel and read its counter."""
+    chain, name = chain_kernel(300, mono, static_terms)
+    assert lane_runs(300, mono, static_terms) == [(chain, 0, 300)]
+    assert name == instance_name(chain, mono) == ran
+    assert (chain == GENERIC) == ran.startswith("generic")
+    key = invert_instance(name, with_state)
+    assert key in INVERT_INSTANCES and key.endswith("[state]") == with_state
+    assert set(hybrid_encode_cuda.chain_launches) == set(INSTANCES)
+    assert set(decorr_invert_cuda.chain_launches) == set(INVERT_INSTANCES)

@@ -21,6 +21,7 @@ from wvpk_torch.ops.entropy_cuda import entropy_decode_wvc_cuda
 from wvpk_torch.ops.entropy_select import entropy_decode_any, \
     entropy_decode_wvc_any, wvc_corrections_any
 from wvpk_torch.ops.wvc_cuda import wvc_corrections_cuda
+from wvpk_torch.testgen.edge import wvc_edge_lanes
 
 CPU = torch.device("cpu")
 
@@ -173,6 +174,112 @@ def test_wvc_outputs_and_corrections_match_xla(name):
         b.wvc_words.view(np.int32), mc, base, res)))
     np.testing.assert_array_equal(want_corr, corr.numpy())
     assert (want_corr != 0).any()
+
+
+def _wvc_walk(words, maxcode, base, residuals):
+    """A scalar walk of the correction scan over numpy inputs, Stream::peek
+    semantics written out (a position past the start of the row's last
+    word reads from that start, then the 0xFFFFFFFF fill): its corrections
+    (T, L, C) int32, the count of each branch taken and each lane's final
+    cursor (bits)."""
+    T, L, C = maxcode.shape
+    W = words.shape[1]
+    rows = words.view(np.uint32).tolist()
+    max_bit = (W - 1) * 32
+    corr = np.zeros((T, L, C), np.int64)
+    n = {f"bits_{b}": 0 for b in range(32)}
+    n.update(extra=0, no_extra=0, negative=0, wrap=0, in_row=0,
+             crosses_last_word_start=0, past_last_word_start=0,
+             lanes_in_row=0, lanes_past=0)
+    ends = np.zeros(L, np.int64)
+    for i in range(L):
+        pos = 0
+        for t in range(T):
+            for c in range(C):
+                mc = int(maxcode[t, i, c])
+                b = mc.bit_length() if mc > 0 else 0
+                n[f"bits_{b}"] += 1
+                if b == 0:
+                    continue
+                bp = min(pos, max_bit)
+                hi = rows[i][(bp >> 5) + 1] if (bp >> 5) + 1 < W \
+                    else 0xFFFFFFFF
+                win = (rows[i][bp >> 5] | hi << 32) >> (bp & 31)
+                extras = ((1 << (b & 31)) - mc - 1) if b < 31 \
+                    else -(1 << 31) - mc - 1
+                code = win & ((1 << (b - 1)) - 1)
+                take = b - 1
+                if code >= extras:
+                    code = (code << 1) - extras + (win >> take & 1)
+                    take += 1
+                    n["extra"] += 1
+                else:
+                    n["no_extra"] += 1
+                where = ("past_last_word_start" if pos > max_bit else
+                         "crosses_last_word_start" if pos + take > max_bit
+                         else "in_row")
+                n[where] += 1
+                pos += take
+                mag = int(base[t, i, c]) + code
+                n["wrap"] += not -(1 << 31) <= mag < 1 << 31
+                neg = residuals[t, i, c] < 0
+                n["negative"] += bool(neg)
+                corr[t, i, c] = -mag if neg else mag
+        n["lanes_past" if pos > max_bit else "lanes_in_row"] += 1
+        ends[i] = pos
+    return (corr & 0xFFFFFFFF).astype(np.uint32).view(np.int32), n, ends
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
+def test_wvc_edge_lanes_plain_matches_xla(mono):
+    """The correction scan's edge lanes (testgen/edge.py::wvc_edge_lanes:
+    maxcodes of every bit length 0-31 and negative, codes on both sides of
+    extras, negative residuals, base + code past int32, rows read past
+    their last word's start): the port's plain wvc_corrections equals
+    wvpk's XLA scan and a scalar walk, which counts that each branch was
+    taken."""
+    words, mc, base, res = wvc_edge_lanes(64, seed=21, mono=mono)
+    want = np.asarray(jax_wvc_corrections(words.view(np.uint32), mc, base,
+                                          res))
+    got = wvc_corrections(*(torch.from_numpy(a)
+                            for a in (words, mc, base, res)))
+    np.testing.assert_array_equal(want, got.numpy())
+    walk, n, _ends = _wvc_walk(words, mc, base, res)
+    np.testing.assert_array_equal(want, walk)
+    missing = [k for k, v in n.items() if v == 0]
+    assert not missing, f"branches not reached: {missing} ({n})"
+
+
+@pytest.mark.parametrize("profile", ["wvc", "wvc_mono"])
+def test_wvc_edge_streams_plain_matches_xla(profile):
+    """The wvc profiles' edge streams (testgen/edge.py::edge_states: noise,
+    zero runs, escapes, truncated, corrupted and zero-filled payloads, and
+    lanes whose .wvc is cut to a third): the port's plain entropy decode
+    gives the scan its inputs, and the port's plain wvc_corrections equals
+    wvpk's XLA scan and the scalar walk on them. On each cut lane the
+    cursor runs past the lane's correction stream into the row's fill."""
+    from wvpk_torch.engine.staging import group_blocks as port_group_blocks
+    from wvpk_torch.testgen.edge import WVC_CUT_EVERY, edge_states, \
+        wvc_min_bits
+
+    (b,) = port_group_blocks(edge_states(profile, 2 * WVC_CUT_EVERY, seed=3))
+    assert b.profile.has_wvc
+    res, mc, base, _broke, _ndec = _port(b, wvc=True)
+    words = np.ascontiguousarray(b.wvc_words).view(np.int32)
+    want = np.asarray(jax_wvc_corrections(words.view(np.uint32), mc, base,
+                                          res))
+    got = wvc_corrections(*(torch.from_numpy(np.array(a))
+                            for a in (words, mc, base, res)))
+    np.testing.assert_array_equal(want, got.numpy())
+    walk, _n, ends = _wvc_walk(words, mc, base, res)
+    np.testing.assert_array_equal(want, walk)
+    stream_bits = np.asarray([8 * len(st.wvcbits) for st in b.states])
+    cut = np.arange(len(b.states)) % WVC_CUT_EVERY == 0
+    assert (ends[cut] > stream_bits[cut]).all(), (ends, stream_bits)
+    # the card tests' bound on the cursor (no walk there)
+    least = wvc_min_bits(mc)
+    assert (least <= ends).all() and (least[cut] > stream_bits[cut]).all()
+    assert (want != 0).any()
 
 
 def test_wvc_outputs_match_pallas_interpret():

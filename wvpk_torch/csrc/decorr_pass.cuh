@@ -158,6 +158,24 @@ __device__ __forceinline__ void peel_stereo(int tv, int wa, int wb,
   va = ia;
 }
 
+// The final state of a lane whose chain has n passes, for the kernels
+// that return it (encode_invert.cu): any struct with the seeds' arrays and
+// (L, 16) / (L, 16, 8) int32 outputs wa_out, wb_out, ha_out and hb_out
+// (mono: the b arrays neither read nor written). The chain's `store`
+// writes its n passes; the slots past them keep their seeds, here.
+template <bool MONO, class A>
+__device__ __forceinline__ void store_seeds(const A& a, int lane, int n) {
+  for (int k = n; k < MAX_NTERMS; ++k) {
+    const int i = lane * MAX_NTERMS + k;
+    a.wa_out[i] = a.wa0[i];
+    if (!MONO) a.wb_out[i] = a.wb0[i];
+    for (int j = 0; j < 8; ++j) {
+      a.ha_out[i * 8 + j] = a.hist_a[i * 8 + j];
+      if (!MONO) a.hb_out[i * 8 + j] = a.hist_b[i * 8 + j];
+    }
+  }
+}
+
 // The I-th of the terms TV...
 template <int I, int T0, int... TV>
 struct TermAt {
@@ -171,7 +189,8 @@ struct TermAt<0, T0, TV...> {
 // The state of a chain fixed at compile time, its terms TV... in pass
 // order. Every index below is a constant once the caller's step loop has
 // made the ring slot m one (decorr.cu unrolls it by 8; encode_hybrid.cu
-// switches on t & 7), so the weights and rings are registers.
+// and encode_invert.cu switch on t & 7), so the weights and rings are
+// registers.
 // `load` reads lane `lane`'s seeds from any struct with the (L, 16) /
 // (L, 16, 8) int32 arrays deltas, wa0, wb0, hist_a and hist_b.
 template <bool MONO, int... TV>
@@ -228,6 +247,24 @@ struct ChainState {
   __device__ __forceinline__ void peel(int m, int& va, int& vb) const {
     peels(std::make_index_sequence<K>{}, m, va, vb);
   }
+
+  // The carried weights and rings (ring slots absolute), then the seeds
+  // of the slots past the chain (store_seeds).
+  template <class A>
+  __device__ __forceinline__ void store(const A& a, int lane) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = lane * MAX_NTERMS + k;
+      a.wa_out[i] = wa[k];
+      if (!MONO) a.wb_out[i] = wb[k];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        a.ha_out[i * 8 + j] = ra[k][j];
+        if (!MONO) a.hb_out[i * 8 + j] = rb[k][j];
+      }
+    }
+    store_seeds<MONO>(a, lane, K);
+  }
 };
 
 // Any chain, read from the lane's arrays at run time (local memory); `load`
@@ -271,14 +308,28 @@ struct GenericState {
         peel_stereo(term[k], wa[k], wb[k], ra[k], rb[k], m, va, vb);
     }
   }
+
+  template <class A>
+  __device__ __forceinline__ void store(const A& a, int lane) const {
+    for (int k = 0; k < nt; ++k) {
+      const int i = lane * MAX_NTERMS + k;
+      a.wa_out[i] = wa[k];
+      if (!MONO) a.wb_out[i] = wb[k];
+      for (int j = 0; j < 8; ++j) {
+        a.ha_out[i * 8 + j] = ra[k][j];
+        if (!MONO) a.hb_out[i * 8 + j] = rb[k][j];
+      }
+    }
+    store_seeds<MONO>(a, lane, nt);
+  }
 };
 
 // The chains compiled into their own kernels: WVPK_CHAIN(id, mono,
 // terms...) lines, expanded by each kernel source that defines
-// WVPK_CHAIN (decorr.cu, encode_hybrid.cu). Their ids, channel counts and
-// terms are ops/decorr_cuda.py::CHAINS, in order (a test holds them
-// equal): the bench chain and the encoder presets, the mono chains those
-// without their cross-channel terms.
+// WVPK_CHAIN (decorr.cu, encode_hybrid.cu, encode_invert.cu). Their ids,
+// channel counts and terms are ops/decorr_cuda.py::CHAINS, in order (a
+// test holds them equal): the bench chain and the encoder presets, the
+// mono chains those without their cross-channel terms.
 #define WVPK_CHAIN_TABLE                                   \
   WVPK_CHAIN(0, false, 18, 17, 2)                          \
   WVPK_CHAIN(1, false, 17, 17)                             \

@@ -25,15 +25,18 @@
 // channel, 12 with WVC: ~0.1 ms of the card's bandwidth).
 //
 // Design: the chain of a word is kept short.
-// - A register bit reader (BitBuf): each thread holds its lane's next
-//   33 to 64 stream bits in a 64-bit register, with the count of valid
-//   bits. A word's unary count (__ffsll of the inverted buffer), its code
-//   (read_code or the hybrid search) and its sign bit read that register;
-//   when fewer than 33 bits remain, one 32-bit word shifts in. That word
-//   was loaded one refill earlier at an address that is a counter, not a
-//   function of the bits just decoded, so its latency leaves the chain: a
-//   16-bit word of ~11 bits costs a load every ~3 words, where a window
-//   read at each bit position cost two dependent loads 2-4 times a word.
+// - A register bit reader (BitBuf, stream.cuh): each thread holds its
+//   lane's next 33 to 64 stream bits in a 64-bit register, with the count
+//   of valid bits. A word's unary count (__ffsll of the inverted buffer),
+//   its code (read_code or the hybrid search) and its sign bit read that
+//   register; when fewer than 33 bits remain, one 32-bit word shifts in.
+//   That word was loaded one refill earlier at an address that is a
+//   counter, not a function of the bits just decoded, so its latency
+//   leaves the chain: a 16-bit word of ~11 bits costs a load every ~3
+//   words, where a window read at each bit position cost two dependent
+//   loads 2-4 times a word. The refill is stream.cuh's one form, shared
+//   with the correction scan (selects, a load clamped to the row and an
+//   L1 prefetch 16 words ahead); the reader holds only bits of the row.
 //   Zero runs and LIMIT_ONES escapes read their Elias-gamma codes through
 //   the same register.
 // - The tail of a row: Stream::peek clamps a position past the start of
@@ -77,51 +80,6 @@ constexpr int THREADS = 32;
 // sign (33) per word. Steps that start closer than this to the last
 // word's start take the peek path.
 constexpr int TAIL_BITS = 384;
-
-// The register bit reader over a lane's row of W words: buf holds the nb
-// (33..64 after fill) next stream bits from position pos, zeros above
-// them; nxt is the row's word widx, loaded ahead for the next refill.
-// Within the row it yields the bits Stream::peek does for positions before
-// the last word's start (past the row, words read as the EOF fill).
-struct BitBuf {
-  const uint32_t* w;
-  int W, pos, nb, widx;
-  uint64_t buf;
-  uint32_t nxt;
-
-  __device__ __forceinline__ uint32_t word(int i) const {
-    return i < W ? __ldg(w + i) : 0xFFFFFFFFu;
-  }
-  __device__ __forceinline__ void start(const uint32_t* row, int words) {
-    w = row;
-    W = words;
-    pos = 0;
-    nb = 64;
-    buf = (uint64_t)word(0) | ((uint64_t)word(1) << 32);
-    widx = 2;
-    nxt = word(2);
-  }
-  // >= 33 valid bits from pos
-  __device__ __forceinline__ uint64_t win() {
-    if (nb < 33) {
-      buf |= (uint64_t)nxt << nb;
-      nb += 32;
-      nxt = word(++widx);
-    }
-    return buf;
-  }
-  __device__ __forceinline__ void skip(int k) {
-    buf >>= k;
-    nb -= k;
-    pos += k;
-  }
-  // The count of leading stream ones, exact below 32 (a unary count is
-  // only compared with LIMIT_ONES and LIMIT_ONES + 1).
-  __device__ __forceinline__ int ones() {
-    const uint32_t z = ~(uint32_t)win();
-    return z ? __ffs(z) - 1 : 32;
-  }
-};
 
 // Stream::peek at a position, the reader of the row's tail.
 struct PeekReader {

@@ -1,7 +1,8 @@
 // Bit-level helpers shared by the kernels that read a lane's staged
 // bitstream (entropy.cu, wvc.cu, wvx.cu) and by the encode word coders
 // (encode_bits.cuh): C#'s int32 wrap, shifts with defined overflow, a
-// 64-bit window over the lane's 32-bit words, and the median updates.
+// 64-bit window over the lane's 32-bit words (Stream::peek), the register
+// bit reader (BitBuf, entropy.cu and wvc.cu), and the median updates.
 
 #pragma once
 
@@ -77,6 +78,66 @@ struct Stream {
     uint64_t lo = __ldg(words + idx);
     uint64_t hi = idx + 1 < nwords ? __ldg(words + idx + 1) : 0xFFFFFFFFull;
     return (lo | (hi << 32)) >> (bp & 31);
+  }
+};
+
+// The register bit reader over a lane's row of W words (entropy.cu,
+// wvc.cu): buf holds the nb (33..64 after win) next stream bits from
+// position pos, zeros above them; nxt is the row's word widx, loaded ahead
+// for the next refill. It yields the bits Stream::peek does for every bit
+// of the row; past the row it reads the last word again, not the EOF fill,
+// so its callers read through it only bits of the row and take a position
+// near the row's end (where peek clamps) to peek or its window.
+//
+// One refill form serves both callers. The refill is selects and a load
+// whose address is a counter, clamped to the row, with nothing waiting on
+// it: the lanes of a warp refill at different words, so the register one
+// refill loads is read by some lane's next refill soon after (about a word
+// later in the correction scan), on the warp's path. Each refill also prefetches into L1 the row's line 16
+// words ahead, so that load hits L1. Against a refill on a branch (loading
+// the EOF fill past the row), in turns on an NVIDIA H100 80GB HBM3 at
+// 700 W, this form made the lossless entropy kernel 3.53 -> 3.12 ms and
+// its hybrid and wvc profiles ~3 % faster (kernel_ab.py; PERF.md).
+struct BitBuf {
+  const uint32_t* w;
+  int W, pos, nb, widx;
+  uint64_t buf;
+  uint32_t nxt;
+
+  __device__ __forceinline__ uint32_t word(int i) const {
+    return __ldg(w + min(i, W - 1));
+  }
+  __device__ __forceinline__ void start(const uint32_t* row, int words) {
+    w = row;
+    W = words;
+    pos = 0;
+    nb = 64;
+    buf = (uint64_t)word(0) | ((uint64_t)word(1) << 32);
+    widx = 2;
+    nxt = word(2);
+  }
+  // >= 33 valid bits from pos
+  __device__ __forceinline__ uint64_t win() {
+    const bool need = nb < 33;
+    buf |= (uint64_t)(need ? nxt : 0u) << (nb & 63);
+    nb += need ? 32 : 0;
+    widx += need;
+    if (need) {
+      nxt = word(widx);
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(w + min(widx + 16, W - 1)));
+    }
+    return buf;
+  }
+  __device__ __forceinline__ void skip(int k) {
+    buf >>= k;
+    nb -= k;
+    pos += k;
+  }
+  // The count of leading stream ones, exact below 32 (a unary count is
+  // only compared with LIMIT_ONES and LIMIT_ONES + 1).
+  __device__ __forceinline__ int ones() {
+    const uint32_t z = ~(uint32_t)win();
+    return z ? __ffs(z) - 1 : 32;
   }
 };
 

@@ -194,7 +194,8 @@ def stage_lanes(pcm: np.ndarray, spec: EncodeSpec, warmup: int,
         z168 = torch.zeros((L, 16, 8), dtype=torch.int64, device=device)
         _, state = invert_any(t["targets"][:K], t["terms"], t["deltas"],
                               t["num_terms"], z16, z16, z168, z168,
-                              mono=mono, with_state=True)
+                              mono=mono, static_terms=tuple(spec.terms),
+                              with_state=True)
         rot = (np.arange(8) + (K & 7)) & 7          # _rotate_ring order
         wfa, wfb, hfa, hfb = (s.cpu().numpy() for s in state)
         hfa, hfb = hfa[:, :, rot], hfb[:, :, rot]
@@ -257,13 +258,14 @@ def scan_lanes(lanes: Lanes):
     t, kw = lanes.t, lanes.kw
     seeds = (t["w0a"], t["w0b"], t["h0a"], t["h0b"])
     chain = (t["targets"], t["terms"], t["deltas"], t["num_terms"])
+    # every lane carries the spec's chain: its compiled kernels run
+    static = tuple(lanes.spec.terms)
     if lanes.hybrid:
-        # every lane carries the spec's chain: its compiled kernel runs
         words, total, decoded = hybrid_scan_any(
             *chain, t["med0"], t["slow0"], t["acc0"], t["delta0"],
-            t["nvals"], *seeds, static_terms=tuple(lanes.spec.terms), **kw)
+            t["nvals"], *seeds, static_terms=static, **kw)
     else:
-        res = invert_any(*chain, *seeds, **kw)
+        res = invert_any(*chain, *seeds, static_terms=static, **kw)
         T, L, C = res.shape
         words, total = words_any(res.permute(0, 2, 1).reshape(T * C, L),
                                  t["med0"], t["nvals"], **kw)

@@ -12,12 +12,13 @@ csrc/encode_words.cu, csrc/encode_hybrid.cu).
   results: (words (L, payload_cap(W)) int32, zero past each lane's end;
   total_bits (L,) int64), and for hybrid the reconstruction (T, L, C).
 
-csrc/encode_hybrid.cu compiles one kernel for each chain of
-decorr_cuda.CHAINS (its weights and rings in registers) and a run-time
-kernel for any chain; `static_terms` (wvpk's argument: every lane carries
-this chain) picks the chain's kernel, as decorr_cuda.lane_runs does. Both
-coders run lanes whose medians fit int32 in 32-bit arithmetic and any
-other lane with int64 medians in the same kernel (`int64_lanes`).
+csrc/encode_invert.cu and csrc/encode_hybrid.cu compile one kernel for
+each chain of decorr_cuda.CHAINS (its weights and rings in registers) and a
+run-time kernel for any chain; `static_terms` (wvpk's argument: every lane
+carries this chain) picks the chain's kernel, as decorr_cuda.lane_runs
+does (`chain_kernel`). Both coders run lanes whose medians fit int32 in
+32-bit arithmetic and any other lane with int64 medians in the same kernel
+(`int64_lanes`).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from .. import _build
 from .decorr_cuda import INSTANCES, _as_i32, instance_name, lane_runs
 from .encode_kernels import entropy_encode_words, hybrid_encode_scan
 from .encode_pack import pack_segments_device, payload_cap
-from .entropy_cuda import _check, _tables
+from .entropy_cuda import _aligned, _check, _tables
 
 I32 = torch.int32
 I64 = torch.int64
@@ -72,14 +73,40 @@ def _chain(name, L, dev, terms, deltas, num_terms, w0a, w0b, h0a, h0b):
             _as_i32("num_terms", num_terms, (L,), dev, name)]
 
 
+def chain_kernel(L: int, mono: bool, static_terms=None) -> tuple[int, str]:
+    """The kernel an invert or hybrid launch of L lanes runs for its
+    `static_terms`: (chain id, instance name), the chain's own kernel where
+    decorr_cuda.lane_runs names one for the whole launch, else the
+    run-time kernel."""
+    ((chain, _lo, _hi),) = lane_runs(L, mono, static_terms)
+    return chain, instance_name(chain, mono)
+
+
+def invert_instance(instance: str, with_state: bool) -> str:
+    """The name of an invert kernel: its chain's instance name
+    (chain_kernel), "[state]" added for the kernel that also returns the
+    final state."""
+    return instance + "[state]" if with_state else instance
+
+
+# the invert's 20 kernels: each instance, without and with the final state
+INVERT_INSTANCES = tuple(invert_instance(n, s) for s in (False, True)
+                         for n in INSTANCES)
+
+
 def decorr_invert_cuda(targets, terms, deltas, num_terms, w0a, w0b, h0a,
-                       h0b, *, mono: bool, with_state: bool = False):
+                       h0b, *, mono: bool, with_state: bool = False,
+                       static_terms=None):
     """Same contract as ops/encode_kernels.py::decorr_invert_warm, on CUDA
-    tensors."""
+    tensors. `static_terms`, when every lane carries that chain, runs its
+    compiled kernel where CHAINS has one (wvpk's rule: ignored when empty,
+    or on mono with cross terms); the run-time kernel runs otherwise."""
     T, L, C = _targets("encode_invert kernel", targets, mono)
     dev = targets.device
+    chain, instance = chain_kernel(L, mono, static_terms)
     args = _chain("encode_invert", L, dev, terms, deltas, num_terms, w0a,
                   w0b, h0a, h0b)
+    targets = _aligned(targets, C)
     res = torch.empty_like(targets)
     state = [None] * 4
     if with_state:
@@ -89,15 +116,17 @@ def decorr_invert_cuda(targets, terms, deltas, num_terms, w0a, w0b, h0a,
                  torch.empty((L, NT, 8), dtype=I32, device=dev),
                  None if mono else torch.empty((L, NT, 8), dtype=I32,
                                                device=dev)]
-    err = _fn("encode_invert", "wvpk_encode_invert", 13, 4)(
+    err = _fn("encode_invert", "wvpk_encode_invert", 13, 6)(
         targets.data_ptr(), *(a.data_ptr() for a in args[:6]),
         args[6].data_ptr(), res.data_ptr(),
         *(None if s is None else s.data_ptr() for s in state), L, T,
-        int(mono), int(with_state), _stream(dev))
+        int(mono), int(with_state), chain, dev.index, _stream(dev))
     if err != 0:
         raise RuntimeError(f"encode_invert kernel launch failed: CUDA "
                            f"error {err}")
     decorr_invert_cuda.launches += 1
+    decorr_invert_cuda.chain_launches[invert_instance(instance,
+                                                      with_state)] += 1
     if not with_state:
         return res
     decorr_invert_cuda.warm_launches += 1
@@ -177,17 +206,14 @@ def hybrid_encode_cuda(targets, terms, deltas, num_terms, med0, slow0, acc0,
     run-time kernel runs otherwise."""
     T, L, C = _targets("encode_hybrid kernel", targets, mono)
     dev = targets.device
-    ((chain, _lo, _hi),) = lane_runs(L, mono, static_terms)
+    chain, instance = chain_kernel(L, mono, static_terms)
     args = _chain("encode_hybrid", L, dev, terms, deltas, num_terms, w0a,
                   w0b, h0a, h0b)
     for name, t, shape in (("med0", med0, (L, 2, 3)), ("slow0", slow0, (L, 2)),
                            ("acc0", acc0, (L, 2)), ("delta0", delta0, (L, 2))):
         _check(name, t, I64, shape, dev, "encode_hybrid")
     nv = _as_i32("nvals", nvals, (L,), dev, "encode_hybrid")
-    # the kernels copy a lane's C targets of a step with one cp.async of
-    # 4 C bytes, which must be aligned to its size (a fresh tensor is)
-    if targets.data_ptr() % (4 * C):
-        targets = targets.clone()
+    targets = _aligned(targets, C)
     cap = payload_cap(T * C)
     words = torch.zeros((L, cap), dtype=I32, device=dev)
     total = torch.empty(L, dtype=I64, device=dev)
@@ -203,7 +229,7 @@ def hybrid_encode_cuda(targets, terms, deltas, num_terms, med0, slow0, acc0,
         raise RuntimeError(f"encode_hybrid kernel launch failed: CUDA "
                            f"error {err}")
     hybrid_encode_cuda.launches += 1
-    hybrid_encode_cuda.chain_launches[instance_name(chain, mono)] += 1
+    hybrid_encode_cuda.chain_launches[instance] += 1
     hybrid_encode_cuda.wide_lanes = wide
     return words, total, recon
 
@@ -214,7 +240,9 @@ decorr_invert_cuda.warm_launches = 0
 encode_words_cuda.launches = 0
 hybrid_encode_cuda.launches = 0
 # of `launches`, those of each kernel instantiation (decorr_cuda.INSTANCES:
-# the chains of CHAINS, "generic" and "generic_mono" the run-time kernel)
+# the chains of CHAINS, "generic" and "generic_mono" the run-time kernel;
+# the invert's with the final state as "<name>[state]", INVERT_INSTANCES)
+decorr_invert_cuda.chain_launches = dict.fromkeys(INVERT_INSTANCES, 0)
 hybrid_encode_cuda.chain_launches = dict.fromkeys(INSTANCES, 0)
 # the last launch's count of lanes coded with int64 medians (int64_lanes),
 # a (1,) int32 tensor on its device (0 on staged lanes)

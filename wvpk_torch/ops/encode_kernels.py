@@ -98,7 +98,8 @@ def _state(chain: _Chain, w0a, w0b, h0a, h0b):
 
 
 def decorr_invert_warm(targets, terms, deltas, num_terms, w0a, w0b, h0a, h0b,
-                       *, mono: bool, with_state: bool = False):
+                       *, mono: bool, with_state: bool = False,
+                       static_terms=None):
     """Peel all passes off joint-domain targets -> entropy residuals.
 
     targets: (T, L, C) int32; terms/deltas (L, 16) int32; num_terms (L,);
@@ -106,6 +107,8 @@ def decorr_invert_warm(targets, terms, deltas, num_terms, w0a, w0b, h0a, h0b,
     rings (int32 values). Returns (T, L, C) int32 residuals; with
     with_state also the final (wa, wb, ha, hb) in the seeds' layouts, int64
     (ring slots absolute: position m = T mod 8 is the next sample's).
+    `static_terms` chooses a kernel on the card (encode_cuda.
+    decorr_invert_cuda) and changes no result: it is taken and ignored.
     """
     T = targets.shape[0]
     chain = _Chain(terms, deltas, w0a, w0b, h0a, h0b, num_terms, mono)

@@ -3,13 +3,13 @@ wvpk/ops/encode_select.py).
 
 CPU tensors take the plain PyTorch versions (encode_kernels.py packed by
 encode_pack.py), CUDA tensors the kernels (encode_cuda.py). There is no
-option and no fallback between them. `hybrid_scan_any` takes wvpk's
-`static_terms` ("every lane carries this chain"): on the card it runs the
-hybrid kernel compiled for that chain where ops/decorr_cuda.py::CHAINS
-has one, else the run-time kernel, which reads each lane's chain; the
-plain version ignores it. The invert and the word coder have no such
-argument: the invert reads each lane's chain at run time, so every chain,
-mono chains with cross terms included, runs on the card.
+option and no fallback between them. `invert_any` and `hybrid_scan_any`
+take wvpk's `static_terms` ("every lane carries this chain"): on the card
+each runs its kernel compiled for that chain where
+ops/decorr_cuda.py::CHAINS has one, else the run-time kernel, which reads
+each lane's chain, so every chain runs on the card (mono chains with cross
+terms too, which wvpk leaves to its XLA scan); the plain versions ignore
+it. The word coder has no chain.
 """
 
 from __future__ import annotations
@@ -28,12 +28,15 @@ def _on_cuda(t) -> bool:
 
 
 def invert_any(targets, terms, deltas, num_terms, w0a, w0b, h0a, h0b, *,
-               mono: bool, with_state: bool = False):
+               mono: bool, static_terms: tuple | None = None,
+               with_state: bool = False):
     """Decorrelation inversion (targets -> residuals), with the final
-    state on request; the contract of encode_kernels.decorr_invert_warm."""
+    state on request; the contract of encode_kernels.decorr_invert_warm.
+    `static_terms`: the chain every lane carries, if the caller knows
+    one."""
     fn = decorr_invert_cuda if _on_cuda(targets) else decorr_invert_warm
     return fn(targets, terms, deltas, num_terms, w0a, w0b, h0a, h0b,
-              mono=mono, with_state=with_state)
+              mono=mono, with_state=with_state, static_terms=static_terms)
 
 
 def words_any(res_words, med0, nvals, *, mono: bool):

@@ -43,6 +43,13 @@ def _check(name, t, dtype, shape, device, kernel="entropy"):
             f"{t.device}")
 
 
+def _aligned(t, C):
+    """`t`, copied if needed so its data is aligned to 4 C bytes: the
+    staging kernels (csrc/stage.cuh) copy a lane's C values of a step with
+    one cp.async of that size (a fresh tensor is aligned)."""
+    return t if t.data_ptr() % (4 * C) == 0 else t.clone()
+
+
 def _launch(words, nwords_lane, med0, slow0, acc0, delta0, *, mono, nsteps,
             hybrid, hybrid_bitrate, hybrid_balance, wvc):
     if not words.is_cuda:

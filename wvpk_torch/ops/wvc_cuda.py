@@ -2,7 +2,9 @@
 
 The kernel replaces wvpk/ops/entropy.py::wvc_corrections (an XLA scan,
 not a Pallas kernel); its plain version is ops/entropy.py::
-wvc_corrections, with the same arguments and results.
+wvc_corrections, with the same arguments and results. Its bit cursor is a
+32-bit position: a row of W words read by T C codes of at most 31 bits
+each stays below 2^31 when (W + T C) 32 does, which the wrapper checks.
 """
 
 from __future__ import annotations
@@ -12,14 +14,14 @@ import ctypes
 import torch
 
 from .. import _build
-from .entropy_cuda import _check
+from .entropy_cuda import _aligned, _check
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wvc")
     fn = lib.wvpk_wvc_corrections
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     return lib
 
@@ -40,11 +42,17 @@ def wvc_corrections_cuda(wvc_words, maxcode, base, residuals):
         _check(name, t, torch.int32, (T, L, C), dev, "wvc")
     if C not in (1, 2):
         raise ValueError(f"wvc kernel: {C} channels")
+    if (W + T * C) * 32 >= 1 << 31:
+        raise ValueError(f"wvc kernel: rows of {W} words read by {T * C} "
+                         f"codes pass its 32-bit bit cursor (rows of 2^26 "
+                         f"words or more never fit)")
+    maxcode, base, residuals = (_aligned(t, C)
+                                for t in (maxcode, base, residuals))
     corr = torch.empty((T, L, C), dtype=torch.int32, device=dev)
     err = _lib().wvpk_wvc_corrections(
         wvc_words.data_ptr(), maxcode.data_ptr(), base.data_ptr(),
         residuals.data_ptr(), corr.data_ptr(), L, W, T, int(C == 1),
-        torch.cuda.current_stream(dev).cuda_stream)
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wvc kernel launch failed: CUDA error {err}")
     wvc_corrections_cuda.launches += 1

@@ -3,7 +3,8 @@ lanes take every path of get_words (WordsUtils.cs:272-511); for the DSD
 decoders, one group of one profile whose lanes take every branch of the
 mode-1 and mode-3 coders (`dsd_edge_states`); for the encode word coders,
 staged kernel inputs whose lanes reach every branch of the lossless and
-the hybrid coder (`encode_edge_lanes`, at the end).
+the hybrid coder (`encode_edge_lanes`); for the correction scan, its
+inputs built directly (`wvc_edge_lanes`, at the end).
 
 No counterpart in wvpk.testgen. Each lane is a one-block file of
 EDGE_SAMPLES samples, encoded with this package's encoder and parsed back;
@@ -21,6 +22,11 @@ at every offset:
   bytes;
 - `zero_filled`: noise whose payload tail is zero bytes (long unary zeros
   past the real words).
+
+In the wvc profiles every second `noise` lane (lane i with i % 12 == 0,
+WVC_CUT_EVERY) also has its .wvc cut to its first third: the correction
+scan's cursor runs past the lane's correction stream into the row's 0xff
+fill, while its main stream decodes whole.
 
 The profiles of EDGE_PROFILES are the entropy kernel's: lossless and
 hybrid (plain, HYBRID_BITRATE, HYBRID_BALANCE), stereo and mono, and
@@ -81,10 +87,29 @@ def _damage(kind: str, wvbits: bytes, rng) -> bytes:
     return bytes(data)
 
 
+# the lanes of a wvc profile whose .wvc is cut short: i % WVC_CUT_EVERY == 0
+WVC_CUT_EVERY = 2 * len(EDGE_KINDS)
+
+
+def wvc_min_bits(maxcode: np.ndarray) -> np.ndarray:
+    """The fewest bits the correction scan reads on each lane of a launch
+    whose maxcode is (T, L, C): a word with maxcode > 0 of bit length b
+    reads b - 1 bits, and always one more where no code falls below the
+    minimal-binary split (maxcode 2^b - 1, or b = 31). A lane whose .wvc
+    holds fewer bits runs past its stream."""
+    mc = np.asarray(maxcode, np.int64)
+    b = np.zeros(mc.shape, np.int64)
+    for k in range(31):
+        b += mc >= 1 << k
+    extra = (mc == (1 << b) - 1) | (b == 31)
+    return np.where(mc > 0, b - 1 + extra, 0).sum(axis=(0, 2))
+
+
 def edge_states(profile: str, lanes: int = 64, seed: int = 0) -> list:
     """Block states of `lanes` one-block files of `profile`
     (EDGE_PROFILES), lane i of kind EDGE_KINDS[i % 6]; their payloads
-    damaged as the kind says, the .wvc of a wvc profile paired."""
+    damaged as the kind says, the .wvc of a wvc profile paired (and cut
+    to its first third on lanes i % WVC_CUT_EVERY == 0)."""
     opts = EDGE_PROFILES[profile]
     ch = 1 if opts.get("mono") else 2
     rng = np.random.default_rng(seed)
@@ -102,6 +127,8 @@ def edge_states(profile: str, lanes: int = 64, seed: int = 0) -> list:
             pair_wvc(blocks, b"".join(sink))
         (st,) = [b.state for b in blocks]
         st.wvbits = _damage(kind, st.wvbits or b"", rng)
+        if sink is not None and i % WVC_CUT_EVERY == 0:
+            st.wvcbits = st.wvcbits[:len(st.wvcbits) // 3]
         states.append(st)
     return states
 
@@ -437,3 +464,62 @@ def encode_edge_lanes(kind: str, lanes: int = 64, seed: int = 0) -> tuple:
             ENCODE_LIMIT_KINDS[i % len(ENCODE_LIMIT_KINDS)], rng)
     return (vals, terms, deltas, np.full(lanes, K, np.int32), med0, slow0,
             acc0, delta0, nvals, w0[0], w0[1], h0[0], h0[1])
+
+
+# The correction scan's edge lanes (`wvc_edge_lanes`): its inputs built
+# directly, with no encoder, WVC_EDGE_STEPS steps over rows of
+# WVC_EDGE_WORDS random 32-bit words (every eighth row all zeros or all
+# ones, so codes sit at both ends of their range). Each word's maxcode has
+# a bit length drawn by the lane's kind, i % 4: `all` (0-31), `short`
+# (0-6: the lane's reads stay inside its row), `long` (24-31: the lane
+# reads past its row's last word's start early, where the reads repeat the
+# clamped window) and `mixed` (0-31, one word in eight a negative
+# maxcode); within a length a quarter of the maxcodes are at its ends
+# (2^(b-1), 2^b - 1). The codes fall on both sides of the minimal-binary
+# split `extras` as the stream's bits do; bit length 31 always reads the
+# extra bit (C#'s mod-32 shift). Residuals are random int32 of either sign
+# (INT32_MIN among them); every eighth lane from 5 on has bases near
+# INT32_MAX or INT32_MIN, so base + code passes int32 and wraps.
+WVC_EDGE_STEPS = 256
+WVC_EDGE_WORDS = 96
+WVC_EDGE_KINDS = ("all", "short", "long", "mixed")
+_WVC_BITS = {"all": (0, 31), "short": (0, 6), "long": (24, 31),
+             "mixed": (0, 31)}
+
+
+def wvc_edge_lanes(lanes: int = 64, seed: int = 0, mono: bool = False
+                   ) -> tuple:
+    """The inputs of one correction-scan launch as numpy arrays in its
+    argument order: (wvc_words (L, WVC_EDGE_WORDS) int32, maxcode, base,
+    residuals (WVC_EDGE_STEPS, L, C) int32)."""
+    rng = np.random.default_rng(seed)
+    C = 1 if mono else 2
+    T, W = WVC_EDGE_STEPS, WVC_EDGE_WORDS
+    words = rng.integers(0, 1 << 32, (lanes, W), dtype=np.uint64)
+    words[0::8] = 0
+    words[4::8] = 0xFFFFFFFF
+    maxcode = np.zeros((T, lanes, C), np.int64)
+    for i in range(lanes):
+        kind = WVC_EDGE_KINDS[i % len(WVC_EDGE_KINDS)]
+        lo, hi = _WVC_BITS[kind]
+        b = rng.integers(lo, hi + 1, (T, C))
+        low = np.where(b > 0, 1 << np.maximum(b - 1, 0), 0)
+        top = np.where(b > 0, (1 << b) - 1, 0)
+        mc = low + (rng.random((T, C)) * (top - low + 1)).astype(np.int64)
+        end = rng.random((T, C))
+        mc = np.where(end < 0.125, low, np.where(end < 0.25, top, mc))
+        if kind == "mixed":
+            neg = rng.random((T, C)) < 0.125
+            mc = np.where(neg, rng.integers(_I32_MIN, 0, (T, C)), mc)
+        maxcode[:, i] = mc
+    base = rng.integers(-(1 << 16), 1 << 16, (T, lanes, C))
+    wide = np.arange(lanes) % 8 == 5
+    near = rng.integers(0, 1 << 12, (T, int(wide.sum()), C))
+    base[:, wide] = np.where(rng.random(near.shape) < 0.5,
+                             _I32_MAX - near, _I32_MIN + near)
+    residuals = rng.integers(_I32_MIN, _I32_MAX + 1, (T, lanes, C))
+    residuals[::17, :, 0] = _I32_MIN
+    residuals[::13] = 0
+    return (words.astype(np.uint32).view(np.int32),
+            maxcode.astype(np.int32), base.astype(np.int32),
+            residuals.astype(np.int32))

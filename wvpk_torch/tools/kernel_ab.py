@@ -7,6 +7,7 @@
     python3 wvpk_torch/tools/kernel_ab.py --dsd OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --dsd ROOT
     python3 wvpk_torch/tools/kernel_ab.py --encode OLD_ROOT NEW_ROOT
+    python3 wvpk_torch/tools/kernel_ab.py --sass OLD_ROOT NEW_ROOT
 
 Two checkouts, in turns old, new, new, old. Each turn is a process of its
 own with that root's `wvpk_torch` and `chip_smoke.py` first on the path
@@ -55,21 +56,35 @@ must give the same outputs.
 `--encode OLD_ROOT NEW_ROOT` runs the same turns on the encode track of
 chip_smoke.py (chip_smoke.track_head: a 768 s stereo track, 8,269 lanes of
 4,096 samples, the default preset, warm seeding over 512 samples):
-  - the word coders at the encoder's launches, lossless (words) and
-    hybrid at bitrate 512 (the hybrid kernel with the root's main-path
-    arguments, `static_terms` where its wrapper takes it), at all lanes
-    and on the first 64 (`--reps` launches each, CUDA events), with a
-    digest of each launch's outputs, which must agree across the turns;
+  - the encode kernels at the encoder's launches with the root's
+    main-path arguments (`static_terms` where its wrapper takes it): the
+    warm invert (512 steps, final state) and the main invert, the word
+    coder, and the hybrid kernel at bitrate 512, at all lanes and on the
+    first 64 (`--reps` launches each, CUDA events), with a digest of
+    each launch's outputs, which must agree across the turns; the invert
+    also on 64 lanes of the mono small file and of the track at the high
+    preset, and, where the root's invert takes `static_terms`, its
+    run-time kernel on all lanes of the main launch;
   - the decode kernels that share the coders' headers, at chip_smoke.py's
     launches: the entropy kernel's hybrid profile (the hybrid corpus'
     largest bucket) and `wvc=True` profile (the wvc corpus'), the
+    correction scan on that profile's outputs (the wvc turn), the
     decorrelation chain kernel (the lossless corpus' largest bucket, its
     chain as `static_terms`) and its wvc arm (the wvc bucket, its chain
-    runs), each with a digest;
+    runs), each with a digest; then `--calls` runs of the root's
+    chip_smoke.stage_breakdown on the wvc corpus;
   - encode_device on the track, lossless and hybrid: one warm-up and
     `--calls` timed calls each (host clock, closed by a synchronize;
     Msamples/s), every call's enc_* stage split, a digest of the bytes.
-`--calls 0` times the word coders alone.
+`--calls 0` times the encode kernels alone. A row that one root has and
+the other lacks is timed where it exists; digests are compared on the
+rows both have.
+
+`--sass OLD_ROOT NEW_ROOT` builds both roots' sources that share headers
+(SASS_SOURCES) and compares their kernels' SASS (`cuobjdump -sass`, the
+addresses and encodings dropped), kernel by kernel, matched by name and
+template arguments: one JSON line of the kernels identical, differing and
+found in one root only, per source.
 
 Needs one CUDA device; imports no jax.
 """
@@ -81,9 +96,15 @@ import hashlib
 import inspect
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+
+# the sources whose kernels --sass compares: those sharing a header that a
+# change may touch (stream.cuh, stage.cuh, decorr_pass.cuh)
+SASS_SOURCES = ("entropy", "decorr", "wvx", "encode_words", "encode_hybrid")
 
 
 def _digest(tensors) -> str:
@@ -442,9 +463,10 @@ def _takes(fn, name) -> bool:
     return name in inspect.signature(fn).parameters
 
 
-def _decode_rows(cs, reps) -> dict:
+def _decode_rows(cs, reps, calls) -> tuple:
     """The decode kernels that share the encode coders' headers, at
-    chip_smoke.py's launches."""
+    chip_smoke.py's launches, and `calls` stage splits of a decode_states
+    call on the wvc corpus (ms per stage)."""
     import torch
 
     from wvpk_torch.engine.staging import bucket_tensors, group_blocks
@@ -490,11 +512,17 @@ def _decode_rows(cs, reps) -> dict:
     rows["entropy_wvc"] = dict(lanes=len(b.states), **_launch_row(
         entropy_decode_wvc_cuda, args, kw, reps))
     res, mc, base, _broke, _ = entropy_decode_wvc_cuda(*args, **kw)
+    rows["wvc"] = dict(lanes=len(b.states), **_launch_row(
+        wvc_corrections_cuda, (t["wvc_words"], mc, base, res), {}, reps))
     corr = wvc_corrections_cuda(t["wvc_words"], mc, base, res)
     rows["decorr_wvc"] = dict(lanes=len(b.states), **_launch_row(
         decorr_post_wvc_cuda, (res, corr) + cs._decorr_args(t, res)[1:],
         chain_kw(decorr_post_wvc_cuda, b), reps))
-    return rows
+    del t, res, mc, base, corr
+    states = cs.parse_corpus(pairs, len(pairs) * cs.WVC_COPIES)[0]
+    stages = [{k: 1000 * v for k, v in cs.stage_breakdown(states, dev).items()}
+              for _ in range(calls)]
+    return rows, stages
 
 
 def measure_encode(root: str, reps: int, calls: int) -> dict:
@@ -513,11 +541,31 @@ def measure_encode(root: str, reps: int, calls: int) -> dict:
     modes = (("lossless", {}),
              ("hybrid", dict(hybrid=True, bitrate=cs.ENC_BITRATE)))
     kernels = {}
+    invert = cs._flat(ec.decorr_invert_cuda)
+    for key, pcm, opts in (
+            ("invert_mono64", cs.small_file("mono")[0], {}),
+            ("invert_high64", cs.track_head(64 * cs.ENC_BLOCK),
+             dict(preset="high"))):
+        lanes = cs.stage_variant(pcm[:64 * cs.ENC_BLOCK], dev, **opts)
+        args, kw, _n, _o = cs._enc_launches(lanes, "invert")
+        kernels[key] = dict(lanes=len(lanes.starts), kwargs=sorted(kw),
+                            **_launch_row(invert, args, kw, reps))
     for mode, opts in modes:
         lanes = stage_lanes(track, build_spec(
             track, block_samples=cs.ENC_BLOCK, **opts), cs.ENC_WARMUP, dev)
         if mode == "lossless":
-            args, kw, _n, _o = cs._enc_launches(lanes, "invert")
+            for key, warm in (("invert_warm", True), ("invert", False)):
+                args, kw, _n, _o = cs._enc_launches(lanes, "invert", warm)
+                kernels[key] = dict(lanes=len(lanes.starts),
+                                    steps=int(args[0].shape[0]),
+                                    kwargs=sorted(kw),
+                                    **_launch_row(invert, args, kw, reps))
+                kernels[key + "64"] = dict(lanes=64, **_launch_row(
+                    invert, cs._lane_prefix(args, 64), kw, reps))
+            if _takes(ec.decorr_invert_cuda, "static_terms"):
+                kernels["invert_generic"] = dict(
+                    lanes=len(lanes.starts), **_launch_row(
+                        invert, args, dict(kw, static_terms=None), reps))
             lanes.t["residuals"] = ec.decorr_invert_cuda(*args, **kw)
             kind, fn = "words", ec.encode_words_cuda
         else:
@@ -530,8 +578,10 @@ def measure_encode(root: str, reps: int, calls: int) -> dict:
         kernels[kind + "64"] = dict(lanes=64, **_launch_row(
             fn, cs._lane_prefix(args, 64), kw, reps))
         del lanes, args
+    wvc_stages = []
     if calls:
-        kernels.update(_decode_rows(cs, reps))
+        rows, wvc_stages = _decode_rows(cs, reps, calls)
+        kernels.update(rows)
     e2e = {}
     for mode, opts in modes if calls else ():
         rates, stages, wv = [], [], None
@@ -550,6 +600,7 @@ def measure_encode(root: str, reps: int, calls: int) -> dict:
         e2e[mode] = {"msamples_per_s": rates, "stage_ms": stages,
                      "digest": hashlib.sha256(wv).hexdigest()[:16]}
     return {"root": root, "kernels": kernels, "encode_device": e2e,
+            "wvc_decode_stage_ms": wvc_stages,
             "card": torch.cuda.get_device_name(0)}
 
 
@@ -566,7 +617,10 @@ def ab_encode(old: str, new: str, reps: int, calls: int) -> int:
         turn = json.loads(out.stdout.strip().splitlines()[-1])
         print(json.dumps(turn))
         turns.append(turn)
-    digests = [{**{name: row["digest"] for name, row in t["kernels"].items()},
+    names = [n for n in turns[1]["kernels"] if n not in turns[0]["kernels"]]
+    names = list(turns[0]["kernels"]) + names
+    both = [n for n in names if all(n in t["kernels"] for t in turns)]
+    digests = [{**{name: t["kernels"][name]["digest"] for name in both},
                 **{mode: row["digest"]
                    for mode, row in t["encode_device"].items()}}
                for t in turns]
@@ -574,10 +628,11 @@ def ab_encode(old: str, new: str, reps: int, calls: int) -> int:
     sides = {"old": turns[0::3], "new": turns[1:3]}
     modes = list(turns[0]["encode_device"])
     print(json.dumps({
-        "same_outputs": same,
-        "kernel_ms": {name: {side: [t["kernels"][name]["ms"] for t in ts]
+        "same_outputs": same, "rows_compared": both,
+        "kernel_ms": {name: {side: [t["kernels"].get(name, {}).get("ms")
+                                    for t in ts]
                              for side, ts in sides.items()}
-                      for name in turns[0]["kernels"]},
+                      for name in names},
         "encode_msamples_per_s": {
             mode: {side: [r for t in ts
                           for r in t["encode_device"][mode]["msamples_per_s"]]
@@ -590,8 +645,67 @@ def ab_encode(old: str, new: str, reps: int, calls: int) -> int:
                           for s in turns[0]["encode_device"][mode][
                               "stage_ms"][0]}
                    for side, ts in sides.items()}
-            for mode in modes}}))
+            for mode in modes},
+        "wvc_decode_stage_ms_median": {
+            side: {s: _median([m[s] for t in ts
+                               for m in t["wvc_decode_stage_ms"]])
+                   for s in (turns[0]["wvc_decode_stage_ms"] or [{}])[0]}
+            for side, ts in sides.items()}}))
     return 0 if same else 1
+
+
+def _built(root: str, names) -> dict:
+    """Build `root`'s sources `names` in a process of its own (its
+    wvpk_torch first on the path); their libraries' paths by name."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from wvpk_torch import _build; _build.build_all(sys.argv[2:]); "
+            "print(json.dumps({n: _build._so_path(n) "
+            "for n in sys.argv[2:]}))")
+    out = subprocess.run([sys.executable, "-c", code, os.path.abspath(root),
+                          *names], capture_output=True, text=True,
+                         check=True, timeout=900)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _sass(path: str, label) -> dict:
+    """{kernel label: its instructions} of a built library (cuobjdump
+    -sass), each instruction's address and encoding dropped."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = label(m.group(1))
+            while name in funcs:
+                name += "'"
+            cur = funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s*(.*?)\s*/\* 0x", ln)
+        if m and cur is not None:
+            cur.append(m.group(1))
+    return funcs
+
+
+def sass(old: str, new: str) -> int:
+    """`--sass`: the two roots' SASS_SOURCES kernels, instruction for
+    instruction."""
+    label = _import_root(new)._kernel_label
+    libs = {root: _built(root, SASS_SOURCES) for root in (old, new)}
+    report, same = {}, True
+    for name in SASS_SOURCES:
+        a, b = (_sass(libs[r][name], label) for r in (old, new))
+        row = {"identical": sorted(k for k in a if b.get(k) == a[k]),
+               "differ": sorted(k for k in a if k in b and b[k] != a[k]),
+               "old_only": sorted(set(a) - set(b)),
+               "new_only": sorted(set(b) - set(a)),
+               "instructions": [sum(map(len, a.values())),
+                                sum(map(len, b.values()))]}
+        same &= not (row["differ"] or row["old_only"] or row["new_only"])
+        report[name] = row
+    print(json.dumps({"sass": report, "identical": same}))
+    return 0
 
 
 def _side_in_group_order(dp, groups, staged):
@@ -667,9 +781,15 @@ def main() -> int:
     ap.add_argument("--encode-turn", action="store_true",
                     help="measure the root OLD's encode path in this "
                     "process")
+    ap.add_argument("--sass", action="store_true",
+                    help="compare OLD's and NEW's SASS of SASS_SOURCES")
     a = ap.parse_args()
     if a.runs:
         return runs(a.runs, a.reps)
+    if a.sass:
+        if not (a.old and a.new):
+            ap.error("--sass takes OLD_ROOT and NEW_ROOT")
+        return sass(a.old, a.new)
     if a.turn:
         print(json.dumps(measure(a.old, a.reps, a.calls)))
         return 0
