@@ -8,10 +8,10 @@ Phases, each printing one JSON line:
   2. build every CUDA kernel from wvpk_torch/csrc, one nvcc per source, all
      started together; ptxas' registers, stack frame and spill bytes of
      each kernel (every compiled decorrelation chain, both word coders and
-     every hybrid and invert chain kernel and both correction-scan
-     kernels must have neither stack nor spills to be in registers, or
-     the run fails; the invert's and the correction scan's registers are
-     listed by kernel); the two encode sources with a kernel per chain,
+     every hybrid and invert chain kernel, both correction-scan kernels
+     and both wvx kernels must have neither stack nor spills to be in
+     registers, or the run fails; the invert's, the correction scan's and
+     the wvx kernels' registers are listed by kernel); the two encode sources with a kernel per chain,
      the longest builds, run beside phases 3-7 and are joined (their own
      build line) before phase 8;
   3. lossless: each kernel against its plain PyTorch version on the card,
@@ -58,8 +58,15 @@ Phases, each printing one JSON line:
      on a CPU copy;
   6. float (8 signals x 9) and int32+wvx (4 files x 18, several sent_bits,
      max_width 0 and 30; the wvx injection kernel against its plain
-     version): decode_states sample-exact against the source, 0 CRC
-     errors (crc_x included);
+     version at the bucket and on 64 lanes, none in its int64 body):
+     decode_states sample-exact against the source, 0 CRC errors (crc_x
+     included), exactly one wvx launch a call; then the wvx kernel on 64
+     edge lanes of 320 samples, stereo and mono with FALSE_STEREO lanes
+     (wvpk_torch/testgen/edge.py::wvx_edge_lanes: every sent_bits class,
+     truncations, start_bc of both signs, cursors past the row's end,
+     every re-expansion arm, lanes outside its 32-bit range), against its
+     plain version on a CPU copy, its int64 body running exactly the
+     lanes outside that range;
   7. DSD, at the JAX bench's DSD shape (4,096 byte-samples a block, stereo
      DSD64, 2.8224 MHz): three groups of 8 one-second signals, 87 blocks
      each (696 lanes a group, 2,088 in all): mode 1 with 4 history bins,
@@ -154,6 +161,7 @@ checkout.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -400,6 +408,18 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _steady_ms(fn, warm_ms=20.0, min_ms=10.0, min_reps=5) -> float:
+    """Mean device time of `fn` at the card's steady clocks: one launch
+    sizes the runs, launches of at least `warm_ms` in all bring the clocks
+    up, then at least `min_reps` launches and `min_ms` are timed. On an
+    NVIDIA H100 80GB HBM3 at 700 W the wvx kernel read 0.14-0.17 ms from 5
+    launches after the host's plain run, 0.10 ms from 20 after 20
+    (PERF.md)."""
+    one = max(_events_ms(fn, 1), 1e-3)
+    _events_ms(fn, max(1, math.ceil(warm_ms / one)))
+    return _events_ms(fn, max(min_reps, math.ceil(min_ms / one)))
+
+
 def _tensor_bytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) \
         else 0
@@ -423,14 +443,14 @@ def _moved_bytes(args, got, need=None, out_need=None) -> int:
 
 
 def check_pair(name, kernel, plain, args, kw, timed, run_plain=True,
-               need=None, out_need=None, plain_cpu=False):
+               need=None, out_need=None, plain_cpu=False, steady=False):
     """`kernel` against `plain` on the same inputs; raises on any
     difference. Returns (the kernel's outputs, the plain version's or
-    None, {max_abs_err, ms, plain_ms, bytes, bound_ms}); ms (5 launches,
-    CUDA events) only when `timed`, the plain version timed once on the
-    host clock and left out (None) when not `run_plain`; with `plain_cpu`
-    the plain version runs on a CPU copy of the inputs (its outputs are
-    returned on the card). `bytes` counts
+    None, {max_abs_err, ms, plain_ms, bytes, bound_ms}); ms (CUDA events:
+    5 launches, or _steady_ms with `steady`) only when `timed`, the plain
+    version timed once on the host clock and left out (None) when not
+    `run_plain`; with `plain_cpu` the plain version runs on a CPU copy of
+    the inputs (its outputs are returned on the card). `bytes` counts
     each input once and each output once, at its tensor's size unless
     `need` (inputs) or `out_need` (outputs) maps its index to the bytes
     the function must move: what the lanes hold, at the delivered
@@ -459,7 +479,8 @@ def check_pair(name, kernel, plain, args, kw, timed, run_plain=True,
                     f"{name} kernel != plain version: output {i}")
         res["max_abs_err"] = max(_max_abs_err(w, g) for w, g in pairs)
     if timed:
-        res["ms"] = _events_ms(lambda: kernel(*args, **kw), 5)
+        res["ms"] = (_steady_ms(lambda: kernel(*args, **kw)) if steady
+                     else _events_ms(lambda: kernel(*args, **kw), 5))
     return got, want, res
 
 
@@ -562,7 +583,7 @@ def compare_bucket(bucket, device, timed, run_plain=True, plain_cpu=None):
     def pair(key, name, args, kw, held, **need):
         got, want, res = check_pair(name, *k[key], args, kw, timed and held,
                                     run_plain and held, plain_cpu=plain_cpu,
-                                    **need)
+                                    steady=key == "wvx", **need)
         if held:
             out[key], io[key] = res, (got, want)
         return got
@@ -601,6 +622,7 @@ def compare_bucket(bucket, device, timed, run_plain=True, plain_cpu=None):
               t["int32_zod"], fs), {}, True,
              need={0: samples, 2: sum(len(st.wvxbits or b"") for st in sts)},
              out_need={0: delivered})
+        out["wvx"]["int64_lanes"] = int(k["wvx"][0].wide_lanes)
     return out, io
 
 
@@ -1176,7 +1198,47 @@ def phase_wvc_edges(dev):
                       "lanes": EDGE_LANES, "results": results}))
 
 
-def phase_float_wvx(dev, wvx_futures):
+# the wvx injection's edge lanes: the seed and the samples a lane
+# (several of the kernel's 128-value chunks)
+WVX_EDGE_SEED, WVX_EDGE_STEPS = 23, 320
+
+
+def phase_wvx_edges(dev):
+    """The wvx injection on EDGE_LANES wvx edge lanes
+    (testgen/edge.py::wvx_edge_lanes), stereo and mono with FALSE_STEREO
+    lanes, against its plain version on a CPU copy: every output equal,
+    and the int64 body run on exactly the lanes int64_lanes names (some)."""
+    from wvpk_torch.ops.wvx_cuda import int64_lanes
+    from wvpk_torch.testgen.edge import wvx_edge_lanes
+
+    kernel, plain = _kernels()["wvx"]
+    results = {}
+    for mono in (False, True):
+        name = "mono_false_stereo" if mono else "stereo"
+        *arrays, fs = wvx_edge_lanes(EDGE_LANES, WVX_EDGE_SEED, mono,
+                                     steps=WVX_EDGE_STEPS)
+        args = tuple(torch.from_numpy(a).to(dev) for a in arrays) \
+            + ((torch.from_numpy(fs).to(dev) if fs.any() else None),)
+        if mono != (args[-1] is not None):
+            raise AssertionError("wvx edge lanes: FALSE_STEREO lanes "
+                                 "must be the mono set's")
+        _got, _want, res = check_pair(f"wvx edge lanes {name}", kernel,
+                                      plain, args, {}, True, plain_cpu=True,
+                                      steady=True)
+        T, _L, C = args[0].shape
+        want = int(int64_lanes(T, C, args[1], args[3], args[5],
+                               args[8]).sum())
+        res["int64_lanes"] = int(kernel.wide_lanes)
+        if res["int64_lanes"] != want or want == 0:
+            raise AssertionError(f"wvx edge lanes {name}: int64 body ran "
+                                 f"{res['int64_lanes']} lanes, not {want}")
+        results[name] = res
+    print(json.dumps({"phase": "wvx_edge_lanes_vs_plain_on_cpu",
+                      "lanes": EDGE_LANES, "T": WVX_EDGE_STEPS,
+                      "results": results}))
+
+
+def phase_float(dev):
     t0 = time.perf_counter()
     files, pcms, exps = make_float()
     states, per_file = parse_corpus(files, len(files) * FLOAT_COPIES)
@@ -1185,8 +1247,10 @@ def phase_float_wvx(dev, wvx_futures):
                  t0)
     decode_phase("float", states, frames, dev, ("entropy", "decorr"),
                  check_exact(states, per_file, pcms, probe=False))
-    float_file = (files[0], pcms[0], exps[0])
+    return files[0], pcms[0], exps[0]
 
+
+def phase_wvx(dev, wvx_futures):
     t0 = time.perf_counter()
     wvx = [f.result() for f in wvx_futures]
     files, pcms = [w[0] for w in wvx], [w[1] for w in wvx]
@@ -1197,7 +1261,17 @@ def phase_float_wvx(dev, wvx_futures):
     launches = decode_phase("wvx", states, frames, dev,
                             ("entropy", "decorr", "wvx"),
                             check_exact(states, per_file, pcms, probe=False))
-    return full, launches, float_file
+    # one launch a wvx bucket a call (4 calls), and the bucket's lanes all
+    # in the 32-bit body
+    from wvpk_torch.engine.staging import group_blocks
+
+    want = 4 * sum(b.profile.has_wvx for b in group_blocks(states))
+    if launches["wvx"] != want or full["wvx"]["int64_lanes"] != 0:
+        raise AssertionError(f"wvx: {launches['wvx']} launches in 4 calls "
+                             f"(want {want}), "
+                             f"{full['wvx']['int64_lanes']} int64 lanes")
+    phase_wvx_edges(dev)
+    return full, launches
 
 
 def sigma_delta(seed, n_bytes, mono=False):
@@ -2406,12 +2480,12 @@ def print_build(phase, names, seconds):
     """The build phase's line for the sources `names`: nvcc's seconds
     (from the start of the build) and what ptxas said of each kernel;
     every compiled decorrelation chain, both word coders, every hybrid
-    and invert chain kernel (16 of the latter) and both correction-scan
-    kernels must have neither stack nor spills to be in registers (the
-    run-time kernels keep their chains in local memory), or the run
-    fails. The registers of the invert's and the correction scan's
-    instances are listed by name, and every kernel above FLAG_REGISTERS
-    is named."""
+    and invert chain kernel (16 of the latter), both correction-scan
+    kernels and both wvx kernels must have neither stack nor spills to be
+    in registers (the run-time kernels keep their chains in local
+    memory), or the run fails. The registers of the invert's, the
+    correction scan's and the wvx kernels' instances are listed by name,
+    and every kernel above FLAG_REGISTERS is named."""
     from wvpk_torch import _build
 
     ptxas = {k: ptxas_table(_build.ptxas_log[k]) for k in names
@@ -2425,7 +2499,8 @@ def print_build(phase, names, seconds):
             ("encode_coder", ("encode_words", "encode_hybrid"),
              ("words_kernel", "hybrid_chain"), None),
             ("invert_chain", ("encode_invert",), ("invert_chain",), 16),
-            ("wvc", ("wvc",), ("wvc_kernel",), 2)):
+            ("wvc", ("wvc",), ("wvc_kernel",), 2),
+            ("wvx", ("wvx",), ("wvx_kernel",), 2)):
         if not any(k in ptxas for k in src):
             continue
         rows = [r for k in src for r in ptxas.get(k, [])
@@ -2436,7 +2511,8 @@ def print_build(phase, names, seconds):
         line[f"{key}s_without_stack_or_spills"] = clean
         if not clean or not rows or count not in (None, len(rows)):
             bad.append(key)
-    for key, src in (("invert", "encode_invert"), ("wvc", "wvc")):
+    for key, src in (("invert", "encode_invert"), ("wvc", "wvc"),
+                     ("wvx", "wvx")):
         if src in ptxas:
             line[f"{key}_registers_stack"] = {
                 r["kernel"]: [r.get("registers"), r.get("stack")]
@@ -2533,8 +2609,8 @@ def main() -> int:
         wvc, c_launches, ((c_wv, c_wvc), c_pcm) = phase_wvc(dev)
         phase_wvc_edges(dev)
         mark("hybrid_wvc")
-        wvx, x_launches, (f_file, f_pcm, f_exp) = phase_float_wvx(
-            dev, wvx_futures)
+        f_file, f_pcm, f_exp = phase_float(dev)
+        wvx, x_launches = phase_wvx(dev, wvx_futures)
         mark("float_wvx")
         dsd_checks, d_launches, (d_wv, d_src) = phase_dsd(
             dev, pool, dsd_jobs, (l_files, l_pcms))

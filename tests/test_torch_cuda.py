@@ -33,13 +33,15 @@ from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda, \
     entropy_decode_wvc_cuda
 from wvpk_torch.ops.post import wvx_inject
 from wvpk_torch.ops.wvc_cuda import wvc_corrections_cuda
+from wvpk_torch.ops.wvx_cuda import int64_lanes as wvx_int64_lanes
 from wvpk_torch.ops.wvx_cuda import wvx_inject_cuda
 from wvpk_torch.ref import decode_block
 from wvpk_torch.testgen import EncodeSpec, encode_dsd_file, encode_file, \
     encode_multichannel
 from wvpk_torch.testgen.edge import DSD_EDGE_PROFILES, EDGE_PROFILES, \
     ENCODE_EDGE_CHAIN, ENCODE_EDGE_KINDS, WVC_CUT_EVERY, dsd_edge_states, \
-    encode_edge_lanes, edge_states, wvc_edge_lanes, wvc_min_bits
+    encode_edge_lanes, edge_states, wvc_edge_lanes, wvc_min_bits, \
+    wvx_edge_lanes
 from wvpk_torch.testgen.encoder import encode_blocks
 
 pytestmark = pytest.mark.cuda
@@ -419,6 +421,28 @@ def test_wvx_kernel_matches_plain(cuda, C):
     torch.cuda.synchronize()
     for w, g in zip(want, got):
         assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("mono", [False, True],
+                         ids=["stereo", "mono_false_stereo"])
+def test_wvx_kernel_edge_lanes(cuda, mono):
+    """The wvx edge lanes (testgen/edge.py::wvx_edge_lanes: every
+    sent_bits class, truncations that read fewer bits or none, start_bc of
+    both signs, cursors run past the row's end, every re-expansion arm,
+    FALSE_STEREO lanes, lanes outside the 32-bit cursor range) at 320
+    samples, several of the kernel's chunks, exact against the plain scan;
+    the int64 body runs exactly the lanes int64_lanes names."""
+    *arrays, fs = wvx_edge_lanes(64, seed=3, mono=mono, steps=320)
+    args = _on(cuda, *arrays)
+    fs = torch.from_numpy(fs).to(cuda) if fs.any() else None
+    got = wvx_inject_cuda(*args, fs)
+    want = wvx_inject(*args, fs)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    T, _L, C = args[0].shape
+    wide = int(wvx_int64_lanes(T, C, args[1], args[3], args[5], fs).sum())
+    assert int(wvx_inject_cuda.wide_lanes) == wide > 0
 
 
 FAMILIES = ("any", "hybrid", "wvx", "float", "wvc", "int32")

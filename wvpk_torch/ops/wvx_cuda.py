@@ -2,7 +2,9 @@
 
 The kernel replaces wvpk/ops/post.py::wvx_inject (an XLA scan, not a
 Pallas kernel); its plain version is ops/post.py::wvx_inject, with the
-same arguments and results.
+same arguments and results. A lane's bit cursor is a 32-bit position
+where it provably fits (`int64_lanes`, the proof in the source); other
+lanes run the same body on 64-bit cursors in the same launch.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from .. import _build
 from .decorr_cuda import _as_i32
+from .entropy_cuda import _aligned
 
 I32 = torch.int32
 
@@ -21,7 +24,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("wvx")
     fn = lib.wvpk_wvx_inject
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     return lib
 
@@ -50,18 +53,40 @@ def wvx_inject_cuda(out, nsamples, wvx_words, wvx_start_bit, wvx_start_bc,
             _as_i32("int32_zod", int32_zod, (L, 3), dev, "wvx")]
     fs = None if false_stereo is None else \
         _as_i32("false_stereo", false_stereo, (L,), dev, "wvx")
+    out = _aligned(out, C)   # a stereo sample is one 8-byte access
     res = torch.empty((T, L, C), dtype=I32, device=dev)
     crc_x = torch.empty(L, dtype=I32, device=dev)
+    wide = torch.zeros(1, dtype=I32, device=dev)
     err = _lib().wvpk_wvx_inject(
         out.data_ptr(), *(a.data_ptr() for a in args),
         None if fs is None else fs.data_ptr(), res.data_ptr(),
-        crc_x.data_ptr(), L, W, T, int(C == 1),
+        crc_x.data_ptr(), wide.data_ptr(), L, W, T, int(C == 1),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wvx kernel launch failed: CUDA error {err}")
     wvx_inject_cuda.launches += 1
+    wvx_inject_cuda.wide_lanes = wide
     return res, crc_x
 
 
+def int64_lanes(T, C, nsamples, wvx_start_bit, sent_bits,
+                false_stereo=None) -> torch.Tensor:
+    """Which lanes csrc/wvx.cu runs on 64-bit cursors: a (L,) bool tensor,
+    True unless 0 <= start_bit, sent_bits <= 255 and start_bit + n
+    max(sent_bits, 0) < 2^31, n the lane's valid values (C per sample
+    below min(nsamples, T), and as many again over the FALSE_STEREO
+    pass's zeros)."""
+    nt = nsamples.to(torch.int64).clamp(0, T)
+    n = nt * C
+    if false_stereo is not None:
+        n = n + torch.where(false_stereo.bool(), nt, 0)
+    sb = sent_bits.to(torch.int64)
+    sbit = wvx_start_bit.to(torch.int64)
+    return (sbit < 0) | (sb > 255) | (sbit + n * sb.clamp(min=0) >= 1 << 31)
+
+
 wvx_inject_cuda.launches = 0
+# the last launch's count of lanes run on 64-bit cursors (int64_lanes), a
+# (1,) int32 tensor on its device (0 on staged lanes)
+wvx_inject_cuda.wide_lanes = None
 

@@ -3,8 +3,9 @@ lanes take every path of get_words (WordsUtils.cs:272-511); for the DSD
 decoders, one group of one profile whose lanes take every branch of the
 mode-1 and mode-3 coders (`dsd_edge_states`); for the encode word coders,
 staged kernel inputs whose lanes reach every branch of the lossless and
-the hybrid coder (`encode_edge_lanes`); for the correction scan, its
-inputs built directly (`wvc_edge_lanes`, at the end).
+the hybrid coder (`encode_edge_lanes`); for the correction scan and the
+wvx injection, their inputs built directly (`wvc_edge_lanes` and
+`wvx_edge_lanes`, at the end).
 
 No counterpart in wvpk.testgen. Each lane is a one-block file of
 EDGE_SAMPLES samples, encoded with this package's encoder and parsed back;
@@ -523,3 +524,93 @@ def wvc_edge_lanes(lanes: int = 64, seed: int = 0, mono: bool = False
     return (words.astype(np.uint32).view(np.int32),
             maxcode.astype(np.int32), base.astype(np.int32),
             residuals.astype(np.int32))
+
+
+# The wvx injection's edge lanes (`wvx_edge_lanes`): lane i cycles, each on
+# its own period, through
+# - sent_bits i % 5: 0, 1-8, 9-31, 32 (mask 0) and 33-255 (shifts mod 32);
+# - max_width (i // 5) % 4: 0, 31, 1-31 and 1-6, so that a truncation
+#   leaves 0 < btr < sent_bits or btr <= 0 (nothing read);
+# - start_bc i % 4: 0, 3, 7-40 and -40..-1;
+# - the re-expansion arm (i // 3) % 4: none, zeros, ones, dups, shifts of
+#   1-40 (mod 32);
+# - values (i // 2) % 4: narrow (0-12 bits), full int32, the extremes
+#   (INT32_MIN, -1, 0, 1, INT32_MAX, +/-2^30) and random bit lengths, with
+#   INT32_MIN, -1 and INT32_MAX in every lane;
+# - nsamples i % 9: 0 (lane 0), T, a random count, else T;
+# - rows: i % 6 == 1 starts two words before the row's end, so its cursor
+#   runs past the last word into Stream::peek's clamp and the EOF fill
+#   (lanes of wide sent_bits run past the row too); rows i % 8 == 3 are
+#   zeros and i % 8 == 7 ones;
+# - mono: FALSE_STEREO on i % 3 == 2 (the second pass over zeros);
+# - outside the kernel's 32-bit range (its int64 body): i % 16 == 11
+#   starts within 2^12 bits of 2^31, i % 16 == 13 has sent_bits 256-4000
+#   (not a metadata byte, but inside the function's domain).
+WVX_EDGE_STEPS = 64
+WVX_EDGE_WORDS = 48
+WVX_EXTREMES = (_I32_MIN, -1, 0, 1, _I32_MAX, 1 << 30, -(1 << 30))
+
+
+def _wvx_values(kind: int, T: int, C: int, rng) -> np.ndarray:
+    if kind == 0:
+        bits = rng.integers(0, 13, (T, C))
+        v = rng.integers(0, 1 << 13, (T, C)) & ((1 << bits) - 1)
+        v = np.where(rng.random((T, C)) < 0.5, -v - 1, v)
+    elif kind == 1:
+        v = rng.integers(_I32_MIN, _I32_MAX + 1, (T, C))
+    elif kind == 2:
+        v = rng.choice(np.asarray(WVX_EXTREMES, np.int64), (T, C))
+    else:
+        bits = rng.integers(0, 32, (T, C))
+        v = rng.integers(0, 1 << 31, (T, C)) >> (31 - bits)
+        v = np.where(rng.random((T, C)) < 0.5, ~v, v)
+    at = rng.integers(0, T, 3)
+    v[at, rng.integers(0, C, 3)] = (_I32_MIN, -1, _I32_MAX)
+    return v
+
+
+def wvx_edge_lanes(lanes: int = 64, seed: int = 0, mono: bool = False,
+                   steps: int = WVX_EDGE_STEPS) -> tuple:
+    """The inputs of one wvx injection launch as numpy arrays in
+    wvx_inject's argument order: (out (steps, L, C) int32, nsamples (L,)
+    int32, wvx_words (L, WVX_EDGE_WORDS) int32, wvx_start_bit,
+    wvx_start_bc, sent_bits, max_width (L,) int32, int32_zod (L, 3)
+    int32, false_stereo (L,) bool, all False in stereo)."""
+    rng = np.random.default_rng(seed)
+    C = 1 if mono else 2
+    T, W = steps, WVX_EDGE_WORDS
+    out = np.zeros((T, lanes, C), np.int64)
+    ns = np.full(lanes, T, np.int64)
+    words = rng.integers(0, 1 << 32, (lanes, W), dtype=np.uint64)
+    words[3::8] = 0
+    words[7::8] = 0xFFFFFFFF
+    start_bit = rng.choice([0, 5], lanes).astype(np.int64)
+    start_bc = np.zeros(lanes, np.int64)
+    sent = np.zeros(lanes, np.int64)
+    mw = np.zeros(lanes, np.int64)
+    zod = np.zeros((lanes, 3), np.int64)
+    for i in range(lanes):
+        out[:, i] = _wvx_values((i // 2) % 4, T, C, rng)
+        sent[i] = (0, int(rng.integers(1, 9)), int(rng.integers(9, 32)), 32,
+                   int(rng.integers(33, 256)))[i % 5]
+        mw[i] = (0, 31, int(rng.integers(1, 32)),
+                 int(rng.integers(1, 7)))[(i // 5) % 4]
+        start_bc[i] = (0, 3, int(rng.integers(7, 41)),
+                       int(rng.integers(-40, 0)))[i % 4]
+        arm = (i // 3) % 4
+        if arm:
+            zod[i, arm - 1] = rng.integers(1, 41)
+        if i % 9 == 0:
+            ns[i] = 0
+        elif i % 9 == 7:
+            ns[i] = rng.integers(1, T)
+        if i % 6 == 1:
+            start_bit[i] = (W - 2) * 32 + rng.integers(0, 41)
+        if i % 16 == 11:
+            start_bit[i] = (1 << 31) - rng.integers(1, 1 << 12)
+        elif i % 16 == 13:
+            sent[i] = rng.integers(256, 4001)
+    fs = (np.arange(lanes) % 3 == 2) if mono else np.zeros(lanes, bool)
+    i32 = [a.astype(np.int32) for a in (start_bit, start_bc, sent, mw, zod)]
+    return (out.astype(np.int32), ns.astype(np.int32),
+            words.astype(np.uint32).view(np.int32), *i32, fs)

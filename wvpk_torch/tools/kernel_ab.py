@@ -7,6 +7,7 @@
     python3 wvpk_torch/tools/kernel_ab.py --dsd OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --dsd ROOT
     python3 wvpk_torch/tools/kernel_ab.py --encode OLD_ROOT NEW_ROOT
+    python3 wvpk_torch/tools/kernel_ab.py --wvx OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --sass OLD_ROOT NEW_ROOT
 
 Two checkouts, in turns old, new, new, old. Each turn is a process of its
@@ -79,6 +80,18 @@ chip_smoke.py (chip_smoke.track_head: a 768 s stereo track, 8,269 lanes of
 `--calls 0` times the encode kernels alone. A row that one root has and
 the other lacks is timed where it exists; digests are compared on the
 rows both have.
+
+`--wvx OLD_ROOT NEW_ROOT` runs the same turns on the int32+wvx corpus of
+chip_smoke.py (chip_smoke.make_wvx: 4 files x WVX_COPIES, one bucket of
+1,584 stereo lanes of 4,096 samples):
+  - the wvx injection kernel at the bucket and on its first 64 lanes, on
+    the pipeline's inputs (the entropy and decorrelation kernels'
+    outputs, muted lanes masked): `--reps` launches each, CUDA events,
+    with a digest of each launch's outputs, which must agree across the
+    turns, and ptxas' line for csrc/wvx.cu where the turn built it;
+  - decode_states end to end: one warm-up and `--calls` timed calls
+    (Msamples/s), then `--calls` runs of the root's
+    chip_smoke.stage_breakdown.
 
 `--sass OLD_ROOT NEW_ROOT` builds both roots' sources that share headers
 (SASS_SOURCES) and compares their kernels' SASS (`cuobjdump -sass`, the
@@ -654,6 +667,119 @@ def ab_encode(old: str, new: str, reps: int, calls: int) -> int:
     return 0 if same else 1
 
 
+def _wvx_args(cs, bucket, dev) -> tuple:
+    """The wvx kernel's arguments at `bucket` as the pipeline gives them:
+    the root's entropy and decorrelation kernels' outputs, muted lanes
+    masked."""
+    from wvpk_torch.engine.staging import bucket_tensors
+    from wvpk_torch.ops.decorr_cuda import decorr_post_cuda
+    from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda
+    from wvpk_torch.ops.post import mask_muted
+
+    t = bucket_tensors(bucket, dev)
+    prof = bucket.profile
+    args, kw = cs._entropy_io(t, prof)
+    res, broke, _ = entropy_decode_cuda(*args, **kw, hybrid=prof.hybrid)
+    dkw = {k: getattr(bucket, k) for k in ("static_terms", "chain_segments")
+           if _takes(decorr_post_cuda, k)}
+    dec, _crc, first_bad = decorr_post_cuda(*cs._decorr_args(t, res),
+                                            mono=prof.mono, **dkw)
+    dec, _ = mask_muted(dec, t["nsamples"], broke, first_bad)
+    fs = t["false_stereo"] if t["false_stereo"].any() else None
+    return (dec, t["nsamples"], t["wvx_words"], t["wvx_start_bit"],
+            t["wvx_start_bc"], t["sent_bits"], t["max_width"],
+            t["int32_zod"], fs)
+
+
+def measure_wvx(root: str, reps: int, calls: int) -> dict:
+    """One `--wvx` turn: `root`'s wvx kernel and decode_states on its
+    int32+wvx corpus."""
+    cs = _import_root(root)
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from wvpk_torch import _build
+    from wvpk_torch.engine import decode_states
+    from wvpk_torch.engine.staging import group_blocks
+    from wvpk_torch.ops.wvx_cuda import wvx_inject_cuda
+
+    dev = torch.device("cuda")
+    with ProcessPoolExecutor(
+            max_workers=cs.POOL_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        made = list(pool.map(cs.make_wvx, range(len(cs.WVX_FILES))))
+    files, pcms = [m[0] for m in made], [m[1] for m in made]
+    n_files = len(files) * cs.WVX_COPIES
+    states, _ = cs.parse_corpus(files, n_files)
+    frames = cs._frames(pcms, n_files)
+    b = max(group_blocks(states), key=lambda x: len(x.states))
+    kernels = {}
+    for key, bucket in (("bucket", b),
+                        ("lanes64", group_blocks(b.states[:64])[0])):
+        args = _wvx_args(cs, bucket, dev)
+        kernels[key] = dict(lanes=len(bucket.states),
+                            **_launch_row(wvx_inject_cuda, args, {}, reps))
+    rates, results = [], None
+    for rep in range(calls + 1):
+        results = None
+        t0 = time.perf_counter()
+        results = decode_states(states, dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rep:
+            rates.append(frames / dt / 1e6)
+    bad = sum(r.crc_error or r.mute_error for r in results)
+    h = hashlib.sha256()
+    for r in results:
+        h.update(r.samples.tobytes())
+    results = None
+    stages = [{k: 1000 * v for k, v in cs.stage_breakdown(states, dev).items()}
+              for _ in range(calls)]
+    ptxas = [ln.strip() for ln in _build.ptxas_log.get("wvx", "").splitlines()
+             if "registers" in ln or "stack frame" in ln]
+    return {"root": root, "kernels": kernels, "msamples_per_s": rates,
+            "bad_blocks": bad, "decode_digest": h.hexdigest()[:16],
+            "stage_ms": stages, "ptxas": ptxas,
+            "card": torch.cuda.get_device_name(0)}
+
+
+def ab_wvx(old: str, new: str, reps: int, calls: int) -> int:
+    turns = []
+    for root in (old, new, new, old):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), root, "--wvx-turn",
+             "--reps", str(reps), "--calls", str(calls)],
+            capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+        turn = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(turn))
+        turns.append(turn)
+    digests = [{**{k: row["digest"] for k, row in t["kernels"].items()},
+                "decode": t["decode_digest"]} for t in turns]
+    same = all(d == digests[0] for d in digests)
+    sides = {"old": turns[0::3], "new": turns[1:3]}
+    stage_names = list(turns[0]["stage_ms"][0]) if calls else []
+    print(json.dumps({
+        "same_outputs": same,
+        "bad_blocks": sum(t["bad_blocks"] for t in turns),
+        "kernel_ms": {key: {side: [t["kernels"][key]["ms"] for t in ts]
+                            for side, ts in sides.items()}
+                      for key in turns[0]["kernels"]},
+        "msamples_per_s": {side: [r for t in ts for r in t["msamples_per_s"]]
+                           for side, ts in sides.items()},
+        "stage_ms_median": {
+            side: {s: _median([m[s] for t in ts for m in t["stage_ms"]])
+                   for s in stage_names}
+            for side, ts in sides.items()},
+        "ptxas": {side: [ln for t in ts for ln in t["ptxas"]]
+                  for side, ts in sides.items()}}))
+    return 0 if same and not any(t["bad_blocks"] for t in turns) else 1
+
+
 def _built(root: str, names) -> dict:
     """Build `root`'s sources `names` in a process of its own (its
     wvpk_torch first on the path); their libraries' paths by name."""
@@ -781,6 +907,10 @@ def main() -> int:
     ap.add_argument("--encode-turn", action="store_true",
                     help="measure the root OLD's encode path in this "
                     "process")
+    ap.add_argument("--wvx", action="store_true",
+                    help="the int32+wvx corpus: OLD NEW in turns")
+    ap.add_argument("--wvx-turn", action="store_true",
+                    help="measure the root OLD's wvx path in this process")
     ap.add_argument("--sass", action="store_true",
                     help="compare OLD's and NEW's SASS of SASS_SOURCES")
     a = ap.parse_args()
@@ -799,6 +929,13 @@ def main() -> int:
     if a.encode_turn:
         print(json.dumps(measure_encode(a.old, a.reps, a.calls)))
         return 0
+    if a.wvx_turn:
+        print(json.dumps(measure_wvx(a.old, a.reps, a.calls)))
+        return 0
+    if a.wvx:
+        if not (a.old and a.new):
+            ap.error("--wvx takes OLD_ROOT and NEW_ROOT")
+        return ab_wvx(a.old, a.new, a.reps, a.calls)
     if a.encode:
         if not (a.old and a.new):
             ap.error("--encode takes OLD_ROOT and NEW_ROOT")
