@@ -136,7 +136,28 @@ Phases, each printing one JSON line:
      lossless file, a hybrid file beside its .wvc and a float file: each
      .wav must equal its source WAV (or the WAV header plus the source
      samples) byte for byte; and with --raw on a mode-3 DSD file, whose
-     output must equal the source bytes.
+     output must equal the source bytes;
+ 10. lane sharding and chunked delivery (wvpk_torch/parallel,
+     DecodeOptions.delivery_chunk_blocks): the multi-device dry run
+     (wvpk_torch/parallel/dryrun.py, every codec family bit-exact against
+     the oracle) on two entries of the card, and the mesh of every visible
+     GPU (make_mesh()); sharded_decode_states on two entries against
+     decode_states on the mixed-chain, wvc, wvx and DSD corpora (the same
+     blocks, the decorrelation instantiations launched exactly those that
+     each shard's cut chain runs name, every shard of the mixed-chain
+     corpus on a table chain's kernel; the DSD wrappers' host reads
+     counted), and the mixed-chain corpus on the visible mesh;
+     encode_device sharded over two entries on 64 blocks of the encode
+     track, lossless and hybrid, byte-equal to the unsharded call, each
+     coder launched once a shard; the lossless corpus through
+     decode_states with delivery_chunk_blocks 0 and 512 in eight turns
+     (0, 512, 512, 0, 0, 512, 512, 0; a warm-up and three timed calls
+     each): the same blocks, the rates, each stage's median, the transfer
+     counts and launches of a call, beside the card's name and power
+     limit; the GPU
+     differential sweep (wvpk_torch/testgen/fuzzspec.py::run_hw_sweep,
+     bench.py's counts: 40 PCM, 8 DSD, 4 multichannel and 4 wvc cases)
+     unsharded and on two entries of the card, 0 mismatches each.
 Then a JSON line of per-kernel results (each with its bound: the bytes
 its function must move over the H100's 3.35 TB/s, each input read once
 and each output written once, counting what the lanes hold and not the
@@ -145,8 +166,8 @@ bytes per sample, DSD byte-values at 1 byte) and of mode 1's tables the
 rows the data visits; the integer coders do no floating-point work, so
 bytes set the bound) and, last, the device JSON line.
 
-Counts of kernel launches are set to 0 just before each decode_states
-or encode_device phase and read just after it; launches made to compare
+Counts of kernel launches are set to 0 just before each decode_states,
+sharded_decode_states or encode_device phase and read just after it; launches made to compare
 a kernel with its plain version do not count. A plain version's time grows with its steps,
 not its lanes (one small op per step, whatever the lane count), so it
 runs once, at the full bucket; a 64-lane launch is held against the
@@ -907,7 +928,7 @@ def phase_lossless(dev):
                              f"{want} and no generic decorrelation")
     print(json.dumps({"phase": "lossless_stage_seconds",
                       "stages": stage_breakdown(states, dev)}))
-    return full, launches, (files, pcms)
+    return full, launches, (files, pcms), states
 
 
 def generic_decorr(states, device, chain_row):
@@ -1133,7 +1154,7 @@ def phase_mixed(dev, futures):
     if min(launches.get(k, 0) for k in need) < 1:
         raise AssertionError(f"mixed chains: a kernel did not run: "
                              f"{launches}")
-    return full, launches
+    return full, launches, states
 
 
 def phase_hybrid(dev):
@@ -1173,7 +1194,7 @@ def phase_wvc(dev):
     launches = decode_phase(
         "wvc", states, frames, dev, ("entropy_wvc", "wvc", "decorr_wvc"),
         check_exact(states, per_file, pcms, want_wvc=True, probe=False))
-    return full, launches, (pairs[0], pcms[0])
+    return full, launches, (pairs[0], pcms[0]), states
 
 
 WVC_EDGE_SEED = 19
@@ -1271,7 +1292,7 @@ def phase_wvx(dev, wvx_futures):
                              f"(want {want}), "
                              f"{full['wvx']['int64_lanes']} int64 lanes")
     phase_wvx_edges(dev)
-    return full, launches
+    return full, launches, states
 
 
 def sigma_delta(seed, n_bytes, mono=False):
@@ -1692,7 +1713,7 @@ def phase_dsd(dev, pool, jobs, lossless):
     print(json.dumps({"phase": "dsd_stage_seconds",
                       "stages": dsd_stage_breakdown(states, dev)}))
     wv, src = jobs["dsd_high"][0].result()
-    return checks, launches, (wv, src)
+    return checks, launches, (wv, src), states
 
 
 def track_head(frames=None):
@@ -2429,6 +2450,237 @@ def run_cli_encode(wavs, device):
     return secs, out
 
 
+# -- phase 10: lane sharding, chunked delivery, the sweep --------------------
+
+CHUNK_BLOCKS = 512      # delivery_chunk_blocks of the chunked calls
+DELIVERY_CALLS = 3      # timed calls a turn, after one warm-up
+DELIVERY_TURNS = (0, CHUNK_BLOCKS, CHUNK_BLOCKS, 0) * 2
+# bench.py:308-310's sweep: PCM, DSD, multichannel and wvc cases
+SWEEP = dict(n_cases=40, n_dsd=8, n_mc=4, n_wvc=4)
+
+
+def _same_results(want, got, name):
+    """Two decodes' DecodedBlocks equal, samples and every flag."""
+    if len(want) != len(got):
+        raise AssertionError(f"{name}: {len(got)} blocks, {len(want)} "
+                             "expected")
+    for k, (w, g) in enumerate(zip(want, got)):
+        if not (np.array_equal(w.samples, g.samples)
+                and (w.crc, w.crc_x, w.crc_wvc, w.mute_error, w.crc_error,
+                     w.wvc_applied) == (g.crc, g.crc_x, g.crc_wvc,
+                                        g.mute_error, g.crc_error,
+                                        g.wvc_applied)):
+            raise AssertionError(f"{name}: block {k} differs")
+
+
+def _shard_instances(states, mesh):
+    """The decorrelation kernel instantiations each shard must launch in
+    one sharded call: lane_runs on each shard's cut chain segments, per
+    bucket. Returns [{"decorr[_wvc]:<instance>": launches}] a shard."""
+    from wvpk_torch import consts
+    from wvpk_torch.engine.staging import group_blocks
+    from wvpk_torch.ops.decorr_cuda import instance_name, lane_runs
+    from wvpk_torch.parallel import shard_bucket, shard_ranges
+
+    per_shard = [{} for _ in mesh]
+    for b in group_blocks([st for st in states if st.header.block_samples
+                           and not st.flags & consts.DSD_FLAG]):
+        key = "decorr_wvc" if b.profile.has_wvc else "decorr"
+        for k, r in enumerate(shard_ranges(len(b.states), len(mesh))):
+            if r is None:
+                continue
+            sub = shard_bucket(b, *r)
+            for cid, _s, _e in lane_runs(r[1] - r[0], b.profile.mono,
+                                         sub.static_terms,
+                                         sub.chain_segments):
+                name = f"{key}:{instance_name(cid, b.profile.mono)}"
+                per_shard[k][name] = per_shard[k].get(name, 0) + 1
+    return per_shard
+
+
+def sharded_vs_unsharded(name, states, dev, mesh, table_chains=False):
+    """sharded_decode_states over `mesh` against decode_states on `dev`:
+    the same blocks, and the decorrelation instantiations launched those
+    every shard's chain runs name (with `table_chains`, every shard runs
+    a table chain's kernel). Returns the phase line's part."""
+    from wvpk_torch.engine import decode_states
+    from wvpk_torch.parallel import sharded_decode_states
+
+    want = decode_states(states, dev)
+    counters = _counters()
+    _reset(counters)
+    t0 = time.perf_counter()
+    got = sharded_decode_states(states, mesh)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _same_results(want, got, f"sharded {name}")
+    launched = _instances()
+    per_shard = _shard_instances(states, mesh)
+    expect = {}
+    for shard in per_shard:
+        for k, n in shard.items():
+            expect[k] = expect.get(k, 0) + n
+    if launched != expect:
+        raise AssertionError(f"sharded {name}: decorrelation launches "
+                             f"{launched}, the shards' runs name {expect}")
+    if table_chains and not all(
+            any(not k.endswith("generic") for k in shard)
+            for shard in per_shard):
+        raise AssertionError(f"sharded {name}: a shard ran no chain "
+                             f"kernel: {per_shard}")
+    return {"blocks": len(states), "equal": True, "seconds": dt,
+            "launches": {k: fn.launches for k, fn in counters.items()
+                         if fn.launches},
+            "instances": launched, "instances_per_shard": per_shard}
+
+
+def sharded_encode(dev, mesh):
+    """encode_device over `mesh` on 64 blocks of the encode track,
+    lossless and hybrid: the unsharded call's bytes, each kernel launched
+    once a shard."""
+    from wvpk_torch.encode import encode_device
+
+    track = track_head(64 * ENC_BLOCK)
+    out = {}
+    for mode, opts in (("lossless", {}),
+                       ("hybrid", {"hybrid": True, "bitrate": ENC_BITRATE})):
+        kw = dict(block_samples=ENC_BLOCK, warmup=ENC_WARMUP, **opts)
+        want = encode_device(track, device=dev, **kw)
+        _enc_counts(reset=True)
+        t0 = time.perf_counter()
+        got = encode_device(track, mesh=mesh, **kw)
+        dt = time.perf_counter() - t0
+        launches = _enc_counts()
+        if got != want:
+            raise AssertionError(f"sharded encode {mode}: bytes differ")
+        main = "encode_hybrid" if opts else "encode_words"
+        if (launches[main], launches["encode_invert[warm]"]) \
+                != (len(mesh), len(mesh)):
+            raise AssertionError(f"sharded encode {mode}: launches "
+                                 f"{launches} on {len(mesh)} shards")
+        out[mode] = {"frames": len(track), "bytes": len(got),
+                     "equal": True, "seconds": dt, "launches": launches}
+    return out
+
+
+def _digest(results) -> str:
+    """One hash of a decode's blocks, samples and flags."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for r in results:
+        h.update(np.ascontiguousarray(r.samples).tobytes())
+        h.update(repr((r.samples.shape, r.crc, r.crc_x, r.crc_wvc,
+                       r.mute_error, r.crc_error)).encode())
+    return h.hexdigest()
+
+
+def delivery_turns(states, frames, dev):
+    """decode_states on the lossless corpus with delivery_chunk_blocks 0
+    and CHUNK_BLOCKS, in DELIVERY_TURNS, each turn a warm-up and
+    DELIVERY_CALLS timed calls: the rates, each stage's median over the
+    timed calls (host clock, trace.collect), the transfer counts and
+    launches of a call; every turn's blocks hash as the first call's (only
+    the hash is kept: a caller holding a call's results while the next
+    call allocates slows its finalize, decode_phase)."""
+    from wvpk_torch import trace
+    from wvpk_torch.config import set_options
+    from wvpk_torch.engine import decode_states, pipeline, xferstats
+
+    res = {}
+    ref = None
+    splits = {}
+    for ch in DELIVERY_TURNS:
+        set_options(delivery_chunk_blocks=ch)
+        try:
+            r = res.setdefault(ch, {"msamples_per_s": []})
+            counters = _counters()
+            for rep in range(1 + DELIVERY_CALLS):
+                results = None
+                _reset(counters)
+                xferstats.reset()
+                with trace.collect() as stages:
+                    t0 = time.perf_counter()
+                    results = decode_states(states, dev)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                if rep:
+                    r["msamples_per_s"].append(frames / dt / 1e6)
+                    for k, v in stages.items():
+                        splits.setdefault((ch, k), []).append(v)
+                if rep == 1:
+                    digest = _digest(results)
+                    ref = ref or digest
+                    if digest != ref:
+                        raise AssertionError(f"delivery CH={ch}: blocks "
+                                             "differ from the first call's")
+                    r["equal"] = True
+            r["xferstats"] = dict(xferstats.counters)
+            r["launches"] = {k: fn.launches for k, fn in counters.items()
+                             if fn.launches}
+            r["instances"] = _instances()
+            r["chunks"] = len(pipeline._chunks(states))
+        finally:
+            set_options(delivery_chunk_blocks=0)
+    for (ch, k), v in splits.items():
+        res[ch].setdefault("stage_seconds_median", {})[k] = \
+            float(np.median(v))
+    if res[0]["instances"].keys() != res[CHUNK_BLOCKS]["instances"].keys():
+        raise AssertionError("chunked delivery ran other kernels: "
+                             f"{res[0]['instances']} / "
+                             f"{res[CHUNK_BLOCKS]['instances']}")
+    return {"single": res[0], "chunked": res[CHUNK_BLOCKS]}
+
+
+def phase_sharding_delivery(dev, card, corpora):
+    """Phase 10: the dry run on two entries of the card and the mesh of
+    every visible GPU; sharded_decode_states against decode_states on the
+    mixed-chain, wvc, wvx and DSD corpora; encode_device sharded, lossless
+    and hybrid; the lossless corpus with chunked delivery against one
+    fetch; the GPU differential sweep, unsharded and on two entries."""
+    from wvpk_torch.parallel import make_mesh
+    from wvpk_torch.parallel.dryrun import dryrun_multichip
+    from wvpk_torch.testgen.fuzzspec import run_hw_sweep
+
+    mesh = make_mesh(devices=[dev, dev])
+    visible = make_mesh()
+    t0 = time.perf_counter()
+    counts = dryrun_multichip(mesh)
+    print(json.dumps({"phase": "dryrun_multichip", "mesh": [str(d) for d in
+                                                             mesh],
+                      "blocks": counts, "seconds": time.perf_counter() - t0,
+                      "visible_mesh": [str(d) for d in visible]}))
+    sharded = {name: sharded_vs_unsharded(name, corpora[name], dev, mesh,
+                                          table_chains=name == "mixed_chains")
+               for name in ("mixed_chains", "wvc", "wvx", "dsd")}
+    sharded["mixed_chains_visible_mesh"] = sharded_vs_unsharded(
+        "mixed_chains", corpora["mixed_chains"], dev, visible)
+    # each DSD wrapper reads the card once a launch (its limit check)
+    sharded["dsd"]["host_reads"] = sum(
+        sharded["dsd"]["launches"].get(k, 0) for k in ("dsd_fast",
+                                                      "dsd_high"))
+    print(json.dumps({"phase": "sharded_decode_states", "mesh": [
+        str(d) for d in mesh], **sharded}))
+    print(json.dumps({"phase": "sharded_encode_device",
+                      **sharded_encode(dev, mesh)}))
+    frames = corpora["lossless_frames"]
+    print(json.dumps({"phase": "delivery_chunked_vs_single", "card": card,
+                      "blocks": len(corpora["lossless"]), "frames": frames,
+                      "chunk_blocks": CHUNK_BLOCKS,
+                      "turns": DELIVERY_TURNS,
+                      "timed_calls_a_turn": DELIVERY_CALLS,
+                      **delivery_turns(corpora["lossless"], frames, dev)}))
+    sweep = {}
+    for name, m in (("unsharded", None), ("mesh2", mesh)):
+        t1 = time.perf_counter()
+        fails, blocks = run_hw_sweep(**SWEEP, device=dev, mesh=m)
+        if fails:
+            raise AssertionError(f"sweep {name}: {fails} mismatches")
+        sweep[name] = {"fails": fails, "blocks": blocks,
+                       "seconds": time.perf_counter() - t1}
+    print(json.dumps({"phase": "hw_sweep", **SWEEP, **sweep}))
+
+
 def _kernel_label(mangled: str) -> str:
     """A readable name for a kernel's mangled name: its function name and
     its template arguments (bools and ints), e.g.
@@ -2552,7 +2804,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
 
     # the encode sources with a kernel per chain build longest and the
     # encode phase is the first to need them: their nvcc runs beside the
@@ -2599,20 +2852,21 @@ def main() -> int:
         cpu_encodes = {name: pool.submit(cpu_encode, name)
                        for name in ENC_SMALL}
         mark("start")
-        lossless, l_launches, (l_files, l_pcms) = phase_lossless(dev)
+        lossless, l_launches, (l_files, l_pcms), l_states = \
+            phase_lossless(dev)
         l_file, l_pcm = l_files[0], l_pcms[0]
         phase_entropy_edges(dev, edge_jobs)
         mark("lossless")
-        mixed, m_launches = phase_mixed(dev, mixed_futures)
+        mixed, m_launches, m_states = phase_mixed(dev, mixed_futures)
         mark("mixed")
         hybrid, h_launches = phase_hybrid(dev)
-        wvc, c_launches, ((c_wv, c_wvc), c_pcm) = phase_wvc(dev)
+        wvc, c_launches, ((c_wv, c_wvc), c_pcm), c_states = phase_wvc(dev)
         phase_wvc_edges(dev)
         mark("hybrid_wvc")
         f_file, f_pcm, f_exp = phase_float(dev)
-        wvx, x_launches = phase_wvx(dev, wvx_futures)
+        wvx, x_launches, x_states = phase_wvx(dev, wvx_futures)
         mark("float_wvx")
-        dsd_checks, d_launches, (d_wv, d_src) = phase_dsd(
+        dsd_checks, d_launches, (d_wv, d_src), d_states = phase_dsd(
             dev, pool, dsd_jobs, (l_files, l_pcms))
         phase_dsd_edges(dev, dsd_edge_jobs)
         mark("dsd")
@@ -2654,6 +2908,11 @@ def main() -> int:
     raw_s = run_cli({"dsd_high": (d_wv, None, d_src.tobytes())}, dev,
                     raw=True)
     mark("cli")
+    phase_sharding_delivery(dev, card, {
+        "lossless": l_states, "lossless_frames": _frames(l_pcms, N_FILES),
+        "mixed_chains": m_states, "wvc": c_states, "wvx": x_states,
+        "dsd": d_states})
+    mark("sharding_delivery")
     print(json.dumps({"phase": "timeline", "seconds_since_start": marks}))
     print(json.dumps({"phase": "cli", "files": 3 + len(wavs),
                       "byte_exact": True, "seconds": cli_s,

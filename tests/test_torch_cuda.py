@@ -11,6 +11,8 @@ without the suite's conftest:
 Integer codec: every comparison is exact (tolerance 0).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1077,3 +1079,107 @@ def test_encode_device_cuda_matches_cpu(cuda, name):
     if "hybrid" not in name and name != "float" and pcm.shape[1] <= 2:
         np.testing.assert_array_equal(
             np.concatenate([r.samples for r in res]), pcm)
+
+
+def hybrid_float_wvc(parse=parse_blocks):
+    """Hybrid float blocks, each given a correction stream: random .wvc
+    bits and a wvc CRC of 0 (testgen refuses a .wvc with float content, so
+    no corpus reaches this path). Float shift 3 and max_exp 133 make the
+    float restore change the samples. The same bytes for any `parse`."""
+    rng = np.random.default_rng(31)
+    data = encode_file(rng.integers(-2**22, 2**22, size=(600, 2)), EncodeSpec(
+        block_samples=150, float_data=True, bytes_stored=4, float_shift=3,
+        float_max_exp=133, float_norm_exp=127, hybrid=True, bitrate=512))
+    return [dataclasses.replace(
+        b.state, wvc_crc=0, wvcbits=rng.integers(
+            0, 256, int(rng.integers(64, 400)), dtype=np.uint8).tobytes())
+        for b in parse(data)]
+
+
+def test_hybrid_float_wvc_cuda_matches_cpu_and_oracle(cuda):
+    states = hybrid_float_wvc()
+    got = decode_states(states, device=cuda)
+    for st, w, g in zip(states, decode_states(states, device="cpu"), got):
+        _same(w, g)
+        want = decode_block(st)
+        np.testing.assert_array_equal(want.samples, g.samples)
+        assert g.wvc_applied and g.crc_wvc == want.crc_wvc
+
+
+def _mixed_chain_states():
+    """A bucket of 145 lanes on four chains: three of CHAINS, 70, 66 and
+    64 lanes (a segment each), and 5 lanes on a chain outside it."""
+    mix = (((18, 17, 2), 70), ((17, 17), 66), ((18, 18, 2, 17, 3), 64),
+           ((18, 2), 5))
+    data = b"".join(encode_file(noise(64 * n, 2, 3000, 80 + k), EncodeSpec(
+        block_samples=64, joint=True, terms=terms, deltas=(2,) * len(terms)))
+        for k, (terms, n) in enumerate(mix))
+    return [b.state for b in parse_blocks(data)]
+
+
+def test_sharded_decode_states_on_a_repeated_device(cuda):
+    """sharded_decode_states over two and three entries of the one card:
+    the mixed-chain bucket (its chain runs split across shards), a DSD
+    call and a mesh larger than a bucket decode as unsharded, and every
+    table chain's kernel launches on the shards."""
+    from wvpk_torch.parallel import sharded_decode_states
+
+    mixed = _mixed_chain_states()
+    dsd = [b.state for b in parse_blocks(encode_dsd_file(
+        np.random.default_rng(81).integers(0, 256, (64 * 7, 2)), 3,
+        block_samples=64))]
+    small = [b.state for b in parse_blocks(encode_file(
+        noise(128, 2, 3000, 82), EncodeSpec(block_samples=64)))]
+    for n in (2, 3):
+        mesh = [f"cuda:{cuda.index or 0}"] * n
+        for states in (mixed, dsd, small):
+            want = decode_states(states, device=cuda)
+            decorr_post_cuda.chain_launches.update(
+                dict.fromkeys(decorr_post_cuda.chain_launches, 0))
+            for w, g in zip(want, sharded_decode_states(states, mesh)):
+                _same(w, g)
+            if states is mixed:
+                ran = decorr_post_cuda.chain_launches
+                for name in ("bench", "fast", "default"):
+                    assert ran[name] >= 1, ran
+                assert ran["generic"] >= 1, ran
+
+
+def test_sharded_encode_on_a_repeated_device(cuda):
+    from wvpk_torch.encode import encode_device
+
+    pcm, kw = ENCODE_FILES["lossless_default"]()
+    want = encode_device(pcm, device=cuda, **kw)
+    for n in (2, 3):
+        assert encode_device(pcm, mesh=[cuda] * n, **kw) == want
+    pcm, kw = ENCODE_FILES["hybrid"]()
+    assert encode_device(pcm, mesh=[cuda] * 2, **kw) \
+        == encode_device(pcm, device=cuda, **kw)
+
+
+@pytest.mark.parametrize("ch", [2, 3, 512])
+def test_chunked_delivery_on_the_card(cuda, ch):
+    """delivery_chunk_blocks on the card: the pinned, event-closed copies
+    give the single fetch's blocks."""
+    from wvpk_torch.config import set_options
+
+    states = _mixed_chain_states() + [b.state for b in parse_blocks(
+        encode_dsd_file(np.random.default_rng(83).integers(
+            0, 256, (64 * 5, 2)), 1, block_samples=64))]
+    want = decode_states(states, device=cuda)
+    set_options(delivery_chunk_blocks=ch)
+    try:
+        got = decode_states(states, device=cuda)
+    finally:
+        set_options(delivery_chunk_blocks=0)
+    for w, g in zip(want, got):
+        _same(w, g)
+
+
+def test_hw_sweep_on_the_card(cuda):
+    from wvpk_torch.testgen.fuzzspec import run_hw_sweep
+
+    for mesh in (None, [cuda, cuda]):
+        fails, blocks = run_hw_sweep(n_cases=8, n_dsd=4, n_mc=1, n_wvc=2,
+                                     device=cuda, mesh=mesh, verbose=False)
+        assert fails == 0 and blocks > 0

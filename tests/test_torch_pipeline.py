@@ -37,8 +37,10 @@ from wvpk_torch.container import parse_blocks
 from wvpk_torch.container.blocks import pair_wvc
 from wvpk_torch.engine import decode_states, pipeline
 from wvpk_torch.engine.staging import group_blocks
+from wvpk_torch.ref import decode_block
 
-from test_torch_cuda import dsd_case, lossless_case, parse_case, pcm_case
+from test_torch_cuda import dsd_case, hybrid_float_wvc, lossless_case, \
+    parse_case, pcm_case
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -599,6 +601,29 @@ def test_wvx_values_wider_than_max_width_pin_the_engine_counter():
         assert not np.array_equal(g.samples, o.samples)
 
 
+def test_hybrid_float_wvc_decodes_to_the_oracle():
+    """Hybrid float blocks with a correction stream (random .wvc bits, no
+    corpus reaches them): the port's wvc program runs the float restore,
+    so its samples are both oracles' (wvpk's and the port's copy), the
+    corrections applied; wvpk's fused wvc program skips the restore
+    (wvpk/engine/fused.py:129-130), and its samples differ."""
+    states = hybrid_float_wvc()
+    jax_states = hybrid_float_wvc(jax_parse_blocks)
+    (b,) = group_blocks(states)
+    assert b.profile.has_wvc and b.profile.is_float
+    got = decode_states(states, "cpu")
+    for st, jst, g in zip(states, jax_states, got, strict=True):
+        want, jax_want = decode_block(st), jax_decode_block(jst)
+        np.testing.assert_array_equal(g.samples, want.samples)
+        np.testing.assert_array_equal(g.samples, jax_want.samples)
+        assert g.wvc_applied
+        assert (g.crc_wvc, g.crc_error, g.mute_error) == (
+            want.crc_wvc, want.crc_error, want.mute_error) == (
+            jax_want.crc_wvc, jax_want.crc_error, jax_want.mute_error)
+    assert not all(np.array_equal(j.samples, g.samples)
+                   for j, g in zip(jax_decode_states(jax_states), got))
+
+
 def test_explicit_wvc_with_several_inputs_is_refused(corpus, tmp_path):
     """--wvc PATH names one correction file: with several inputs it is
     refused (exit 2, nothing written), never dropped."""
@@ -733,19 +758,30 @@ class Refuse:
 
 sys.meta_path.insert(0, Refuse())
 import wvpk_torch.api, wvpk_torch.cli, wvpk_torch.encode, wvpk_torch.engine
-import wvpk_torch.testgen
+import wvpk_torch.debug, wvpk_torch.engine.xferstats, wvpk_torch.parallel
+import wvpk_torch.parallel.dryrun, wvpk_torch.report, wvpk_torch.testgen
+import wvpk_torch.testgen.faults, wvpk_torch.testgen.fuzzspec
 from wvpk_torch.cli import main
 
 for path in sys.argv[1:]:
     encode = ["--encode", "--block-samples", "256"] \
-        if path.endswith(".wav") else []
+        if path.endswith(".wav") else ["--report"]
     assert main([*encode, path, "-q", "--device", "cpu"]) == 0, path
+assert main([sys.argv[1], "--verify-checksums", "-q"]) == 0
+wvpk_torch.debug.checkify_smoke("cpu")
+assert wvpk_torch.testgen.fuzzspec.run_hw_sweep(
+    n_cases=1, n_dsd=1, n_mc=0, n_wvc=0, device="cpu", mesh=["cpu", "cpu"],
+    verbose=False)[0] == 0
 """
 
 
 def _seam_static(tmp_path):
     files = sorted((REPO / "wvpk_torch").rglob("*.py"))
     assert len(files) > 30
+    names = {str(f.relative_to(REPO / "wvpk_torch")) for f in files}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/dryrun.py",
+            "debug.py", "report.py", "trace.py", "engine/xferstats.py",
+            "testgen/fuzzspec.py", "testgen/faults.py"} <= names
     bad = [b for f in files + [REPO / "chip_smoke.py"]
            for b in _banned_imports(f)]
     assert not bad, bad
@@ -753,9 +789,11 @@ def _seam_static(tmp_path):
 
 def _seam_runtime(tmp_path):
     """A lossless file, a hybrid file beside its .wvc and a DSD file
-    decode through the port's CLI, and a WAV encodes with the device
-    encoder and decodes back byte for byte, in a process that refuses
-    every import of jax and wvpk."""
+    decode through the port's CLI with --report, the lossless one is
+    audited with --verify-checksums, a WAV encodes with the device encoder
+    and decodes back byte for byte, the debug smoke runs and a small sweep
+    runs on a two-entry CPU mesh, in a process that refuses every import
+    of jax and wvpk."""
     from wvpk_torch.io.wav import make_wav_header
 
     wv, wvc = _wvc_pair(noise(512, 2, 4000, 12), EncodeSpec(

@@ -4,6 +4,7 @@ wvpk/cli.py).
     python -m wvpk_torch.cli in.wv -o out.wav [--device cuda|cpu]
         [--wvc [PATH] | --no-wvc]
     python -m wvpk_torch.cli a.wv b.wv ... --batch
+    python -m wvpk_torch.cli in.wv --report | --verify-checksums
     python -m wvpk_torch.cli --encode in.wav -o out.wv [--device cuda|cpu]
         [--preset fast|default|high] [--hybrid-bitrate N] [--streaming] ...
 
@@ -17,10 +18,13 @@ streams write their byte-values: after a stored DSF header the payload is
 re-blocked as DSF, so a .wv wrapping a .dsf decodes back to that file byte
 for byte; `--raw` writes the bytes alone. Batch mode
 decodes many files' .wv streams in one device batch and reports
-throughput. Encode mode runs the device encoder on `--device`, as wvpk's
+throughput. `--report` prints a JSON decode report per file
+(report.py), `--verify-checksums` audits every block's stored
+ID_BLOCK_CHECKSUM (alone, or before the decode when an output is asked
+for). Encode mode runs the device encoder on `--device`, as wvpk's
 `--encode --device` does; .dsf inputs and `--wvc` (a hybrid file with its
 correction file) take the host encoder, as wvpk's CLI does without
-`--device`. The JSON report stays in `python -m wvpk.cli`.
+`--device`.
 """
 
 from __future__ import annotations
@@ -36,13 +40,14 @@ import numpy as np
 from . import api, consts, trace
 from .io.pcm import format_samples
 from .io.wav import make_wav_header, write_wav
+from .report import build_report
 
 
 def decode_one(path: str, out_path: str | None, quiet: bool = False,
                show_trace: bool = False, raw: bool = False,
                streaming: bool | None = None, verify_md5: bool = False,
                device: str = "cuda", wvc: str | None = None,
-               no_wvc: bool = False) -> int:
+               no_wvc: bool = False, report_json: bool = False) -> int:
     t_open = time.perf_counter()
     # unlike the reference demo (first two channels only), decode every
     # stream of multichannel files; pair the sibling correction file
@@ -55,13 +60,13 @@ def decode_one(path: str, out_path: str | None, quiet: bool = False,
                                    device=device)
     try:
         return _decode_open(wpc, path, out_path, quiet, show_trace, raw,
-                            verify_md5, t_open)
+                            verify_md5, t_open, report_json)
     finally:
         wpc.close()
 
 
 def _decode_open(wpc, path, out_path, quiet, show_trace, raw, verify_md5,
-                 t_open) -> int:
+                 t_open, report_json) -> int:
     err = api.WavpackGetErrorMessage(wpc)
     if err:
         print(f"Error: {err}", file=sys.stderr)
@@ -166,6 +171,10 @@ def _decode_open(wpc, path, out_path, quiet, show_trace, raw, verify_md5,
               f"open+index {1000 * (t0 - t_open):.1f} ms)")
     if show_trace and not quiet:
         print(trace.format_report(stages, total_unpacked))
+    if report_json:
+        print(build_report(wpc, file=path, decode_seconds=t1 - t0,
+                           samples_decoded=total_unpacked,
+                           stage_seconds=stages).to_json())
 
     num_samples = api.WavpackGetNumSamples(wpc)
     if num_samples != -1 and total_unpacked != num_samples:
@@ -383,6 +392,8 @@ def main(argv=None) -> int:
                         "versions)")
     p.add_argument("--trace", action="store_true",
                    help="print per-stage timing breakdown")
+    p.add_argument("--report", action="store_true",
+                   help="print a JSON decode report per file")
     p.add_argument("--batch", action="store_true",
                    help="decode all inputs in one lane-parallel device batch")
     p.add_argument("--raw", action="store_true",
@@ -396,6 +407,10 @@ def main(argv=None) -> int:
     p.add_argument("--verify-md5", action="store_true",
                    help="verify decoded audio against the file's stored "
                         "MD5 checksum (fails if the file carries none)")
+    p.add_argument("--verify-checksums", action="store_true",
+                   help="audit every block's stored ID_BLOCK_CHECKSUM "
+                        "(WavPack 5 extension; blocks without one are "
+                        "counted but not errors)")
     p.add_argument("--wvc", nargs="?", const=True, default=None,
                    metavar="PATH",
                    help="decode: pair this correction file (one input "
@@ -456,6 +471,20 @@ def main(argv=None) -> int:
               "input file (siblings are picked up without it)",
               file=sys.stderr)
         return 2
+    if args.verify_checksums:
+        from .container import verify_file_checksums
+        rc = 0
+        for path in args.inputs:
+            ok, bad, absent = verify_file_checksums(path)
+            if not args.quiet or bad:
+                print(f"{path}: {ok} block checksums ok, {bad} bad, "
+                      f"{absent} absent",
+                      file=sys.stderr if bad else sys.stdout)
+            if bad:
+                rc = 1
+        # audit-only unless the user also asked for decode output
+        if rc or not (args.output or args.batch):
+            return rc
     if args.batch:
         return decode_batch(args.inputs, args.quiet, args.device)
     rc = 0
@@ -466,7 +495,8 @@ def main(argv=None) -> int:
                          raw=args.raw,
                          streaming=True if args.streaming else None,
                          verify_md5=args.verify_md5, device=args.device,
-                         wvc=wvc_path, no_wvc=args.no_wvc)
+                         wvc=wvc_path, no_wvc=args.no_wvc,
+                         report_json=args.report)
     return rc
 
 

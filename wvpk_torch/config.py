@@ -5,7 +5,7 @@ The WavPack format's other two config layers are decoded elsewhere: the
 container/blockstate.py) and CONFIG_* metadata feeds the informational
 mode mask (api.get_mode). This module is the open-level layer — the
 reference has only OPEN_2CH_MAX (Defines.cs:26); ours adds the batch /
-layout knobs the batched engine needs. The kernels are chosen by the
+layout / debug knobs the batched engine needs. The kernels are chosen by the
 tensors' device (ops/*_select.py), so no option selects one.
 """
 
@@ -26,10 +26,18 @@ class DecodeOptions:
     stream_threshold: int = 64 << 20
     # lane capacity rounding floor (power-of-two bucketing of block sizes)
     capacity_floor: int = 256
+    # cross-check every decoded block against the scalar oracle at the end
+    # of decode_states (slow; debugging)
+    oracle_check: bool = False
     # deliver PCM from the device as packed bytes (bytes_stored+1 wide)
     # instead of int32 samples when the bucket allows it: 2-4x smaller
     # device->host transfers on the API/CLI delivery path
     packed_delivery: bool = True
+    # pipeline the delivery path in chunks of at most this many PCM blocks
+    # (one (profile, chain) run each): chunk k+1 stages and launches while
+    # chunk k's results copy to the host. 0 = one batched copy per call,
+    # the default (wvpk's)
+    delivery_chunk_blocks: int = 0
 
 
 _default = DecodeOptions()

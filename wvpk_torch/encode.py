@@ -348,7 +348,7 @@ def _spec_from_stats(st: dict, *, sample_rate: int = 44100,
 
 
 def encode_device(pcm: np.ndarray, *, device="cuda", warmup: int = 512,
-                  **options) -> bytes:
+                  mesh: list | None = None, **options) -> bytes:
     """Encode integer or float32 PCM to a WavPack stream on `device`
     ("cuda": the CUDA kernels; "cpu": their plain PyTorch versions).
 
@@ -369,6 +369,9 @@ def encode_device(pcm: np.ndarray, *, device="cuda", warmup: int = 512,
     over its own first `warmup` samples on the device, then seed the
     block with the quantized warm state — recovers the fresh-seed
     compression cost while keeping blocks independent lanes.
+
+    mesh (parallel.make_mesh) shards the encode scans lane-parallel over
+    its devices (`device` is then not read): the same bytes as unsharded.
     """
     from .engine.device_encoder import (encode_blocks_device,
                                         encode_multichannel_device)
@@ -387,16 +390,16 @@ def encode_device(pcm: np.ndarray, *, device="cuda", warmup: int = 512,
     if pcm.shape[1] > 2:
         return encode_multichannel_device(
             pcm, replace(spec, mono=False, false_stereo=False),
-            warmup=warmup, device=device, md5_digest=digest)
+            warmup=warmup, device=device, mesh=mesh, md5_digest=digest)
     if spec.false_stereo:
         pcm = pcm[:, :1]
     return b"".join(encode_blocks_device(pcm, spec, warmup, device=device,
-                                         md5_digest=digest))
+                                         mesh=mesh, md5_digest=digest))
 
 
 def encode_wav_file(in_path, out_path, *, device="cuda",
                     warmup: int = 512, window_samples: int = 1 << 20,
-                    **options) -> dict:
+                    mesh: list | None = None, **options) -> dict:
     """Bounded-memory WAV file -> .wv file encode (two streaming passes).
 
     Pass 1 scans the payload once to fold `pcm_stats` windows (the spec
@@ -414,8 +417,9 @@ def encode_wav_file(in_path, out_path, *, device="cuda",
     writes a `.wvc`): its windows thread the carried adaptive state
     across the boundary (one-window files are byte-identical to
     `encode`). >2ch input emits multichannel segments (per-stream carried
-    state on host; independent lanes on device). Returns {"samples",
-    "channels", "bytes_written", "windows"}.
+    state on host; independent lanes on device). `mesh` (device encoder
+    only) shards each window's encode scans over its devices. Returns
+    {"samples", "channels", "bytes_written", "windows"}.
     """
     import hashlib
 
@@ -478,6 +482,9 @@ def encode_wav_file(in_path, out_path, *, device="cuda",
         raise ValueError(
             "wvc (hybrid-lossless correction files) is host-encode only "
             "for now — drop device or wvc=True")
+    if mesh is not None and device is None:
+        raise ValueError("mesh shards the device encoder; device=None "
+                         "takes the host encoder")
 
     if device is not None:
         from .engine.device_encoder import (encode_blocks_device,
@@ -505,7 +512,7 @@ def encode_wav_file(in_path, out_path, *, device="cuda",
                 sink = [] if use_wvc else None
                 if ch > 2 and device is not None:
                     blocks = [encode_multichannel_device(
-                        v, spec, warmup=warmup, device=device,
+                        v, spec, warmup=warmup, device=device, mesh=mesh,
                         start_sample=done, first=first, last=last,
                         md5_digest=digest, pad_to=total)]
                 elif ch > 2:
@@ -516,7 +523,7 @@ def encode_wav_file(in_path, out_path, *, device="cuda",
                     blocks = [seg]
                 elif device is not None:
                     blocks = encode_blocks_device(
-                        v, spec, warmup, device=device,
+                        v, spec, warmup, device=device, mesh=mesh,
                         start_sample=done, first=first, last=last,
                         md5_digest=digest, pad_to=total)
                 else:

@@ -31,9 +31,10 @@ import numpy as np
 import torch
 
 from .. import consts, trace
-from ..device import resolve
 from ..ops.encode_pack import finish_crc, hybrid_crc_acc, payload_bytes
 from ..ops.encode_select import hybrid_scan_any, invert_any, words_any
+from ..parallel.mesh import make_mesh, sharded_encode_scans, \
+    sharded_hybrid_encode_scan, sharded_invert_warm_state
 from ..testgen.encoder import (EncodeSpec, EncPass, _auto_medians,
                                _make_words_state, _quantize_decorr,
                                _quantize_entropy, _quantize_hybrid,
@@ -148,6 +149,7 @@ class Lanes:
     hybrid: bool
     metas: list
     t: dict
+    devices: list     # the scans' mesh (parallel.make_mesh), t's device first
 
     @property
     def kw(self) -> dict:
@@ -158,10 +160,39 @@ class Lanes:
         return kw
 
 
+def warm_state(targ, terms, deltas, num_terms, *, mono: bool,
+               static_terms: tuple):
+    """The decorrelation inversion over `targ` (K, L, C) from zero seeds:
+    only its final state (wa, wb, ha, hb) per lane."""
+    L, dev = targ.shape[1], targ.device
+    z16 = torch.zeros((L, 16), dtype=torch.int64, device=dev)
+    z168 = torch.zeros((L, 16, 8), dtype=torch.int64, device=dev)
+    _, state = invert_any(targ, terms, deltas, num_terms, z16, z16, z168,
+                          z168, mono=mono, static_terms=static_terms,
+                          with_state=True)
+    return state
+
+
+def lossless_scans(targ, terms, deltas, num_terms, med0, nvals, w0a, w0b,
+                   h0a, h0b, *, mono: bool, static_terms: tuple):
+    """The lossless encode scans: the decorrelation inversion from the
+    seeds (w0a, w0b, h0a, h0b), then the word coder. Returns words_any's
+    (payload words (L, cap) int32, total bits (L,) int64)."""
+    res = invert_any(targ, terms, deltas, num_terms, w0a, w0b, h0a, h0b,
+                     mono=mono, static_terms=static_terms)
+    T, L, C = res.shape
+    return words_any(res.permute(0, 2, 1).reshape(T * C, L), med0, nvals,
+                     mono=mono)
+
+
 def stage_lanes(pcm: np.ndarray, spec: EncodeSpec, warmup: int,
-                device, pad_to: int | None = None) -> Lanes:
-    """Joint transform, the warm scan (on `device`) and the per-block
-    metadata: a `Lanes` ready for `scan_lanes`."""
+                device, pad_to: int | None = None,
+                mesh: list | None = None) -> Lanes:
+    """Joint transform, the warm scan and the per-block metadata: a
+    `Lanes` on `device`, ready for `scan_lanes`. The scans shard their
+    lanes over `mesh` (parallel.make_mesh, `device` its first entry; by
+    default [device], the unsharded scans)."""
+    mesh = mesh or [device]
     hybrid = bool(spec.hybrid)
     mono = spec.nch_data == 1
     stored = _stored_domain(pcm, spec)
@@ -190,12 +221,9 @@ def stage_lanes(pcm: np.ndarray, spec: EncodeSpec, warmup: int,
     warm = warmup > 0 and len(spec.terms) > 0
     if warm:
         K = min(warmup, T)
-        z16 = torch.zeros((L, 16), dtype=torch.int64, device=device)
-        z168 = torch.zeros((L, 16, 8), dtype=torch.int64, device=device)
-        _, state = invert_any(t["targets"][:K], t["terms"], t["deltas"],
-                              t["num_terms"], z16, z16, z168, z168,
-                              mono=mono, static_terms=tuple(spec.terms),
-                              with_state=True)
+        state = sharded_invert_warm_state(
+            t["targets"][:K], t["terms"], t["deltas"], t["num_terms"],
+            mesh, mono=mono, static_terms=tuple(spec.terms))
         rot = (np.arange(8) + (K & 7)) & 7          # _rotate_ring order
         wfa, wfb, hfa, hfb = (s.cpu().numpy() for s in state)
         hfa, hfb = hfa[:, :, rot], hfb[:, :, rot]
@@ -247,28 +275,30 @@ def stage_lanes(pcm: np.ndarray, spec: EncodeSpec, warmup: int,
         ("med0", med0), ("slow0", slow0), ("acc0", acc0),
         ("delta0", delta0), ("nvals", nsamp * C))})
     trace.mark("enc_meta", _t)
-    return Lanes(spec, pcm, stored, starts, nsamp, mono, hybrid, metas, t)
+    return Lanes(spec, pcm, stored, starts, nsamp, mono, hybrid, metas, t,
+                 mesh)
 
 
 def scan_lanes(lanes: Lanes):
     """The encode kernels over the staged lanes: (payload words (L, cap)
     int32, total bits (L,) int64, CRC accumulators (L,) int64), on the
-    lanes' device. The block CRC covers the decoded values: the targets
-    for lossless blocks, the scan's reconstruction for hybrid ones."""
+    lanes' device: the scans run sharded over the lanes' devices
+    (parallel/mesh.py) and their outputs gather on the first. The block
+    CRC covers the decoded values: the targets for lossless blocks, the
+    scan's reconstruction for hybrid ones."""
     t, kw = lanes.t, lanes.kw
     seeds = (t["w0a"], t["w0b"], t["h0a"], t["h0b"])
     chain = (t["targets"], t["terms"], t["deltas"], t["num_terms"])
     # every lane carries the spec's chain: its compiled kernels run
     static = tuple(lanes.spec.terms)
     if lanes.hybrid:
-        words, total, decoded = hybrid_scan_any(
+        words, total, decoded = sharded_hybrid_encode_scan(
             *chain, t["med0"], t["slow0"], t["acc0"], t["delta0"],
-            t["nvals"], *seeds, static_terms=static, **kw)
+            t["nvals"], *seeds, lanes.devices, static_terms=static, **kw)
     else:
-        res = invert_any(*chain, *seeds, static_terms=static, **kw)
-        T, L, C = res.shape
-        words, total = words_any(res.permute(0, 2, 1).reshape(T * C, L),
-                                 t["med0"], t["nvals"], **kw)
+        words, total = sharded_encode_scans(
+            *chain, t["med0"], t["nvals"], lanes.devices,
+            static_terms=static, seeds=seeds, **kw)
         decoded = t["targets"]
     crc_acc = hybrid_crc_acc(
         decoded, t["nvals"], mono=lanes.mono,
@@ -278,6 +308,7 @@ def scan_lanes(lanes: Lanes):
 
 def encode_blocks_device(pcm: np.ndarray, spec: EncodeSpec,
                          warmup: int = 0, *, device="cuda",
+                         mesh: list | None = None,
                          start_sample: int = 0, first: bool = True,
                          last: bool = True,
                          md5_digest: bytes | None = None,
@@ -301,6 +332,10 @@ def encode_blocks_device(pcm: np.ndarray, spec: EncodeSpec,
     float/int32 content; stored magnitudes < 2^27 (keeps medians in the
     non-wrapping regime the kernels contract on).
 
+    `mesh` (parallel.make_mesh) shards the warm scan and the encode scans
+    over its devices, lanes staged on its first device (`device` is then
+    not read); the blocks are the unsharded call's, byte for byte.
+
     Batch positioning (the streaming encoder's hooks; blocks are
     independent lanes, so a file can be emitted in any lane batching):
     `start_sample` offsets the headers' block_index; `first`/`last`
@@ -319,7 +354,8 @@ def encode_blocks_device(pcm: np.ndarray, spec: EncodeSpec,
     if pcm.ndim == 1:
         pcm = pcm[:, None]
     assert pcm.shape[1] == spec.nch_data
-    lanes = stage_lanes(pcm, spec, warmup, resolve(device), pad_to)
+    mesh = make_mesh(devices=[device] if mesh is None else mesh)
+    lanes = stage_lanes(pcm, spec, warmup, mesh[0], pad_to, mesh)
 
     _t = time.perf_counter()
     words, total, crc_acc = scan_lanes(lanes)
@@ -429,6 +465,7 @@ def _assemble(lanes: Lanes, payloads, crc_acc, *, start_sample, first,
 def encode_multichannel_device(pcm: np.ndarray, spec: EncodeSpec,
                                channel_mask: int | None = None,
                                warmup: int = 0, *, device="cuda",
+                               mesh: list | None = None,
                                start_sample: int = 0, first: bool = True,
                                last: bool = True,
                                md5_digest: bytes | None = None,
@@ -440,7 +477,7 @@ def encode_multichannel_device(pcm: np.ndarray, spec: EncodeSpec,
     time window. The keyword hooks position `pcm` as one window of a
     larger stream (see encode_blocks_device); device blocks are
     independent lanes, so any window split is byte-identical to the
-    batch."""
+    batch. `mesh` shards each stream's lanes (encode_blocks_device)."""
     from ..testgen.multichannel import (_inject_metadata,
                                         _set_segment_flags, split_streams,
                                         stream_specs)
@@ -463,7 +500,7 @@ def encode_multichannel_device(pcm: np.ndarray, spec: EncodeSpec,
             riff_trailer=spec.riff_trailer if si == len(widths) - 1
             else None)
         stream_blocks.append(encode_blocks_device(
-            pcm[:, off:off + w], sspec, warmup, device=device,
+            pcm[:, off:off + w], sspec, warmup, device=device, mesh=mesh,
             start_sample=start_sample, first=first, last=last,
             pad_to=pad_to))
         off += w

@@ -30,9 +30,11 @@ import torch
 
 from .. import consts
 from ..container.blockstate import BlockState
-from ..device import side_streams
+from ..device import run_side_by_side
 from ..ops.dsd import dsd_raw_crc
 from ..ops.dsd_select import dsd_fast_decode_any, dsd_high_decode_any
+from ..parallel.mesh import shard_dsd_groups
+from . import xferstats
 from .fused import build_blob, to_device, unpack_blob
 
 
@@ -116,6 +118,7 @@ def group_tensors(g: DsdGroup, device: torch.device
     """A group's arrays on `device`: the payload bytes as one uint8 copy,
     the rest as one int32 blob."""
     blob, metas = build_blob(g.arrays)
+    xferstats.add("h2d", blob.nbytes + g.data.nbytes)
     t = unpack_blob(to_device(blob, device), metas)
     t["data"] = to_device(g.data, device)
     return t
@@ -171,44 +174,38 @@ def deliver_group(g: DsdGroup, outs, crc, err) -> LaunchedDsd:
 def decode_groups(groups: list[DsdGroup],
                   staged: list[dict[str, torch.Tensor]]) -> list[tuple]:
     """decode_group of every group on its staged tensors. On a CUDA device
-    each mode-1 and mode-3 group launches on a side stream of its own, so
-    that the groups' kernels run side by side: every side stream is forked
-    from the current stream (after the staging copies queued there) before
-    the first launch, and joined back into it after the last; mode 0 stays
-    on the current stream. The mode-3 groups launch first: they run the
-    longest, and their blocks then take SMs before the mode-1 blocks fill
-    the card around them. The tensors each stream uses are recorded on
-    it, so the caching allocator hands none back early."""
+    each mode-1 and mode-3 group launches on a side stream of its own
+    (device.run_side_by_side: forked from the device's current stream after
+    the staging copies queued there, joined back into it after the last
+    launch, every tensor recorded on the streams that use it), so that the
+    groups' kernels run side by side; mode 0 stays on the current stream.
+    The mode-3 groups launch first: they run the longest, and their blocks
+    then take SMs before the mode-1 blocks fill the card around them. The
+    groups may lie on several devices (a mesh's shards)."""
     coded = sorted((k for k, g in enumerate(groups) if g.prof.mode != 0),
                    key=lambda k: groups[k].prof.mode != 3)
-    if not coded or staged[coded[0]]["data"].device.type != "cuda":
-        return [decode_group(g, t) for g, t in zip(groups, staged)]
-    dev = staged[coded[0]]["data"].device
-    main = torch.cuda.current_stream(dev)
-    side = side_streams(dev, len(coded))
-    for stream in side:
-        stream.wait_stream(main)
     res = [None] * len(groups)
-    for stream, k in zip(side, coded):
-        with torch.cuda.stream(stream):
-            res[k] = decode_group(groups[k], staged[k])
-        for t in staged[k].values():
-            t.record_stream(stream)
-        for t in res[k]:
-            t.record_stream(main)
-    for stream in side:
-        main.wait_stream(stream)
+    outs = run_side_by_side([
+        (staged[k]["data"].device, staged[k],
+         lambda t, g=groups[k]: decode_group(g, t)) for k in coded])
+    for k, out in zip(coded, outs):
+        res[k] = out
     return [r if r is not None else decode_group(g, t)
             for r, g, t in zip(res, groups, staged)]
 
 
-def launch_dsd_states(states: list[BlockState],
-                      device: torch.device) -> list[LaunchedDsd]:
+def launch_dsd_states(states: list[BlockState], device: torch.device,
+                      mesh: list | None = None) -> list[LaunchedDsd]:
     """Queue every DSD profile group's decode on `device` (every group's
     staging first, then the launches, decode_groups); nothing is fetched
-    here."""
-    groups = group_dsd(states)
-    staged = [group_tensors(g, device) for g in groups]
+    here. With `mesh` (parallel.make_mesh; by default [device]) each
+    mode-1 and mode-3 group's lanes split into a contiguous run a device
+    (parallel.mesh.shard_dsd_groups), each a launch on its device; mode 0,
+    a host byte copy and a CRC, stays whole on the mesh's first device, as
+    in wvpk."""
+    groups, devices = shard_dsd_groups(group_dsd(states),
+                                       mesh or [device])
+    staged = [group_tensors(g, dev) for g, dev in zip(groups, devices)]
     return [deliver_group(g, *res)
             for g, res in zip(groups, decode_groups(groups, staged))]
 

@@ -9,7 +9,15 @@ on the device -> ONE batched device-to-host copy for every bucket's and
 group's results -> `DecodedBlock`s on the host. The host only
 parses containers and reassembles outputs (reference UnpackUtils.cs:
 510-686 splits at the same place: unpack_init on the host, the sample
-math on the device).
+math on the device). With `DecodeOptions.delivery_chunk_blocks` the PCM
+blocks go in chunks, each chunk's copy overlapping the next chunk's
+staging and launches (`run_decode`); with a mesh (parallel/mesh.py) each
+bucket's and group's lanes are sharded over several devices.
+
+A hybrid float block paired with a .wvc decodes with the float restore
+(the profile's `is_float`, as both oracles do, ref/oracle.py), so the port
+gives the oracle's samples; wvpk's fused path keeps a fault there: its wvc
+program hard-codes `is_float=False` (wvpk/engine/fused.py:129-130).
 """
 
 from __future__ import annotations
@@ -22,11 +30,14 @@ import torch
 from .. import consts, trace
 from ..config import get_options
 from ..container.blockstate import BlockState
-from ..device import resolve
+from ..debug import check_against_oracle
+from ..device import copy_stream
+from ..parallel.mesh import launch_sharded_bucket, make_mesh
+from . import xferstats
 from .dsd_pipeline import fetch_list, finalize_dsd_groups, launch_dsd_states
 from .fused import DEVICE_FIELDS, WVX_FIELDS, deliver, fused_decode, \
     fused_decode_wvc, fused_decode_wvx
-from .staging import Bucket, bucket_tensors, group_blocks
+from .staging import Bucket, _chain_of, group_blocks, profile_of
 
 
 @dataclass
@@ -92,13 +103,18 @@ def decode_tensors(b: Bucket, t: dict[str, torch.Tensor]):
     return out, crc, mute, None, None
 
 
-def launch_bucket(b: Bucket, device: torch.device) -> LaunchedBucket:
-    out, crc, mute, crc_x, crc_wvc = decode_tensors(
-        b, bucket_tensors(b, device))
-    bps = _bucket_bps(b) if get_options().packed_delivery else None
-    payload, crcmute = deliver(out, crc, mute, bps, crc_x=crc_x,
-                               crc_wvc=crc_wvc)
-    return LaunchedBucket(bucket=b, payload=payload, crcmute=crcmute, bps=bps)
+def delivery_bps(b: Bucket) -> int | None:
+    """The packed width a bucket's payload is delivered at (None: int32
+    samples)."""
+    return _bucket_bps(b) if get_options().packed_delivery else None
+
+
+def deliver_bucket(b: Bucket, t: dict[str, torch.Tensor]):
+    """A staged bucket's fused program and its two results for the host:
+    (payload, crcmute) as fused.deliver gives them."""
+    out, crc, mute, crc_x, crc_wvc = decode_tensors(b, t)
+    return deliver(out, crc, mute, delivery_bps(b), crc_x=crc_x,
+                   crc_wvc=crc_wvc)
 
 
 def _unpack_lane(raw_words: np.ndarray, n_vals: int, bps: int,
@@ -145,18 +161,79 @@ def finalize_bucket(lb: LaunchedBucket, cm: np.ndarray,
     return results
 
 
-def _fetch_arrays(arrs: list[torch.Tensor]) -> list[np.ndarray]:
-    """ONE device-to-host copy for a list of int32 device tensors: flatten,
-    concatenate on the device, copy, then split on the host. Per-copy
-    latency is paid once however many buckets a call has."""
-    if not arrs:
-        return []
-    blob = torch.cat([a.reshape(-1) for a in arrs]).cpu().numpy()
-    out, pos = [], 0
-    for a in arrs:
-        out.append(blob[pos:pos + a.numel()].reshape(tuple(a.shape)))
-        pos += a.numel()
+def _start_fetch(arrs: list[torch.Tensor], overlap: bool = False):
+    """Queue ONE device-to-host copy per device for a list of int32 tensors
+    (flattened and concatenated on their device), so per-copy latency is
+    paid once however many buckets a call has. With `overlap`, a CUDA
+    device's copy goes without blocking into a pinned host tensor on the
+    device's copy stream (forked from its current stream), closed by an
+    event, and the host goes on while it runs; otherwise _finish_fetch
+    makes the copy. Returns the handle _finish_fetch takes."""
+    by_dev: dict[torch.device, list[int]] = {}
+    for i, a in enumerate(arrs):
+        by_dev.setdefault(a.device, []).append(i)
+    parts = []
+    for dev, idx in by_dev.items():
+        blob = torch.cat([arrs[i].reshape(-1) for i in idx])
+        event = None
+        if overlap and dev.type == "cuda":
+            host = torch.empty(blob.shape, dtype=blob.dtype, pin_memory=True)
+            stream = copy_stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                host.copy_(blob, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
+            blob.record_stream(stream)
+            blob = host
+        parts.append((blob, event, idx))
+    return parts, [tuple(a.shape) for a in arrs]
+
+
+def _finish_fetch(handle) -> list[np.ndarray]:
+    """The host arrays of a _start_fetch handle, in the order given (an
+    overlapped copy is waited for on its event)."""
+    parts, shapes = handle
+    out: list = [None] * len(shapes)
+    for blob, event, idx in parts:
+        if event is not None:
+            event.synchronize()
+        host = blob.cpu().numpy()
+        xferstats.add("d2h", host.nbytes)
+        pos = 0
+        for i in idx:
+            n = int(np.prod(shapes[i]))
+            out[i] = host[pos:pos + n].reshape(shapes[i])
+            pos += n
     return out
+
+
+def _fetch_arrays(arrs: list[torch.Tensor]) -> list[np.ndarray]:
+    """One batched device-to-host copy a device for a list of int32
+    tensors (_start_fetch), made now."""
+    return _finish_fetch(_start_fetch(arrs))
+
+
+def _chunks(pcm_states: list[BlockState]) -> list[list[int]]:
+    """The PCM blocks' positions cut into delivery chunks (wvpk's rule):
+    with `delivery_chunk_blocks` CH set and more than CH * 3 // 2 blocks,
+    the blocks sorted by (profile, term chain) and cut at every profile
+    change and every CH blocks, so each chunk stages to few buckets; one
+    chunk otherwise."""
+    CH = get_options().delivery_chunk_blocks
+    if not (CH and len(pcm_states) > CH * 3 // 2):
+        return [list(range(len(pcm_states)))]
+    profs = [profile_of(st) for st in pcm_states]
+    order = sorted(range(len(pcm_states)),
+                   key=lambda i: (repr(profs[i]), _chain_of(pcm_states[i])))
+    chunks, run = [], []
+    for i in order:
+        if run and (profs[i] != profs[run[-1]] or len(run) >= CH):
+            chunks.append(run)
+            run = []
+        run.append(i)
+    chunks.append(run)
+    return chunks
 
 
 def decode_states(states: list[BlockState],
@@ -164,8 +241,24 @@ def decode_states(states: list[BlockState],
     """Decode a list of blocks (any mix of PCM profiles and DSD modes) on
     `device`. Every PCM bucket and DSD group is queued first, and all
     results (PCM payloads, packed DSD bytes, CRC/mute tables) come back in
-    one batched copy, so a mixed call pays the fetch latency once."""
-    dev = resolve(device)
+    one batched copy, so a mixed call pays the fetch latency once; with
+    `delivery_chunk_blocks` set, in one copy a chunk (run_decode)."""
+    return run_decode(states, make_mesh(devices=[device]))
+
+
+def run_decode(states: list[BlockState],
+               mesh: list[torch.device]) -> list[DecodedBlock]:
+    """decode_states with every PCM bucket's and DSD group's lanes sharded
+    over `mesh` (parallel.make_mesh; a mesh of one device is the unsharded
+    decode).
+
+    The PCM blocks go in delivery chunks (_chunks). Chunk k+1 is staged
+    and launched while chunk k's results copy to the host, and chunk k
+    is finalized once its copy has landed; the DSD groups are queued
+    first and ride in the last chunk's copy. With one chunk this is one
+    batched copy for the whole call. With `oracle_check` every block is
+    held against the scalar oracle at the end, samples and status
+    (debug.check_against_oracle)."""
     results: list[DecodedBlock | None] = [None] * len(states)
     pcm_states, pcm_indices = [], []
     dsd_states, dsd_indices = [], []
@@ -180,24 +273,47 @@ def decode_states(states: list[BlockState],
         else:
             pcm_states.append(st)
             pcm_indices.append(i)
-    with trace.stage("staging"):
-        buckets = group_blocks(pcm_states) if pcm_states else []
+    chunks = _chunks(pcm_states)
     with trace.stage("launch"):
-        dsd_launched = (launch_dsd_states(dsd_states, dev) if dsd_states
-                        else [])
-        launched = [launch_bucket(b, dev) for b in buckets]
-    with trace.stage("transfer"):
-        fetched = _fetch_arrays([a for lb in launched
-                                 for a in (lb.crcmute, lb.payload)]
-                                + fetch_list(dsd_launched))
-    with trace.stage("finalize"):
-        for k, lb in enumerate(launched):
-            blocks = finalize_bucket(lb, fetched[2 * k], fetched[2 * k + 1])
-            for j, res in zip(lb.bucket.indices, blocks):
-                results[pcm_indices[j]] = res
-        for j, res in finalize_dsd_groups(dsd_launched,
-                                          fetched[2 * len(launched):]):
-            results[dsd_indices[j]] = res
+        dsd_launched = (launch_dsd_states(dsd_states, mesh[0], mesh)
+                        if dsd_states else [])
+
+    def launch(k):
+        chunk = chunks[k]
+        with trace.stage("staging"):
+            buckets = group_blocks([pcm_states[i] for i in chunk])
+        with trace.stage("launch"):
+            launched = [lb for b in buckets
+                        for lb in launch_sharded_bucket(b, mesh)]
+        last = k == len(chunks) - 1
+        arrs = [a for lb in launched for a in (lb.crcmute, lb.payload)]
+        with trace.stage("transfer"):
+            handle = _start_fetch(
+                arrs + (fetch_list(dsd_launched) if last else []),
+                overlap=len(chunks) > 1)
+        return chunk, launched, last, handle
+
+    def consume(chunk, launched, last, handle):
+        with trace.stage("transfer"):
+            fetched = _finish_fetch(handle)
+        with trace.stage("finalize"):
+            for k, lb in enumerate(launched):
+                blocks = finalize_bucket(lb, fetched[2 * k],
+                                         fetched[2 * k + 1])
+                for j, res in zip(lb.bucket.indices, blocks):
+                    results[pcm_indices[chunk[j]]] = res
+            if last:
+                for j, res in finalize_dsd_groups(
+                        dsd_launched, fetched[2 * len(launched):]):
+                    results[dsd_indices[j]] = res
+
+    inflight = launch(0)
+    for k in range(len(chunks)):
+        following = launch(k + 1) if k + 1 < len(chunks) else None
+        consume(*inflight)
+        inflight = following
+    if get_options().oracle_check:
+        check_against_oracle(states, results)
     return results
 
 

@@ -9,6 +9,7 @@
     python3 wvpk_torch/tools/kernel_ab.py --encode OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --wvx OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --sass OLD_ROOT NEW_ROOT
+    python3 wvpk_torch/tools/kernel_ab.py --e2e OLD_ROOT NEW_ROOT
 
 Two checkouts, in turns old, new, new, old. Each turn is a process of its
 own with that root's `wvpk_torch` and `chip_smoke.py` first on the path
@@ -98,6 +99,15 @@ chip_smoke.py (chip_smoke.make_wvx: 4 files x WVX_COPIES, one bucket of
 addresses and encodings dropped), kernel by kernel, matched by name and
 template arguments: one JSON line of the kernels identical, differing and
 found in one root only, per source.
+
+`--e2e OLD_ROOT NEW_ROOT` runs the same turns on decode_states end to
+end, at the default options, on three calls: the lossless corpus (192
+files), the DSD corpus of `--dsd`, and chip_smoke.py's mixed call (the
+first 16 lossless files with the DSD corpus). Each gets one warm-up and
+`--calls` timed calls (host clock, closed by a synchronize), every call's
+pipeline stages as `trace.collect` gives them (staging, launch, transfer,
+finalize: host clock, unsynchronised), and a digest of the samples,
+which must agree across the turns.
 
 Needs one CUDA device; imports no jax.
 """
@@ -460,6 +470,91 @@ def ab_dsd(old: str, new: str, reps: int, calls: int) -> int:
                    for s in stage_names}
             for side, ts in sides.items()}}))
     return 0 if same and not any(t["bad_blocks"] for t in turns) else 1
+
+
+def measure_e2e(root: str, calls: int) -> dict:
+    """One `--e2e` turn: `root`'s decode_states on the lossless, DSD and
+    mixed calls."""
+    cs = _import_root(root)
+    import torch
+
+    from wvpk_torch import trace
+    from wvpk_torch.engine import decode_states
+
+    dev = torch.device("cuda")
+    files, pcms = cs.make_corpus()
+    lossless, _ = cs.parse_corpus(files, cs.N_FILES)
+    head, _ = cs.parse_corpus(files, 16)
+    dsd, vals, _groups = _dsd_corpus(cs)
+    units = {"lossless": ("msamples_per_s", cs._frames(pcms, cs.N_FILES)),
+             "dsd": ("mbytevals_per_s", vals)}
+    turn = {"root": root, "card": torch.cuda.get_device_name(0)}
+    for name, states in (("lossless", lossless), ("dsd", dsd),
+                         ("mixed", head + dsd)):
+        secs, stages, results = [], [], None
+        for rep in range(calls + 1):
+            results = None
+            with trace.collect() as sink:
+                t0 = time.perf_counter()
+                results = decode_states(states, dev)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            if rep:
+                secs.append(dt)
+                stages.append({k: 1000 * v for k, v in sink.items()})
+        h = hashlib.sha256()
+        for r in results:
+            h.update(r.samples.tobytes())
+        row = {"blocks": len(states), "call_s": secs, "stage_ms": stages,
+               "bad_blocks": sum(r.crc_error or r.mute_error
+                                 for r in results),
+               "digest": h.hexdigest()[:16]}
+        if name in units:
+            key, n = units[name]
+            row[key] = [n / x / 1e6 for x in secs]
+        turn[name] = row
+        results = None
+    return turn
+
+
+def ab_e2e(old: str, new: str, calls: int) -> int:
+    turns = []
+    for root in (old, new, new, old):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), root, "--e2e-turn",
+             "--calls", str(calls)],
+            capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+        turn = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(turn))
+        turns.append(turn)
+    names = ("lossless", "dsd", "mixed")
+    same = all(t[n]["digest"] == turns[0][n]["digest"]
+               for t in turns for n in names)
+    bad = sum(t[n]["bad_blocks"] for t in turns for n in names)
+    sides = {"old": turns[0::3], "new": turns[1:3]}
+    summary = {"same_outputs": same, "bad_blocks": bad,
+               "card": turns[0]["card"]}
+    for n in names:
+        rate = next((k for k in turns[0][n] if k.endswith("_per_s")),
+                    "call_s")
+        stage_names = sorted({s for t in turns for m in t[n]["stage_ms"]
+                              for s in m})
+        summary[n] = {
+            rate: {side: [r for t in ts for r in t[n][rate]]
+                   for side, ts in sides.items()},
+            "call_s_median": {side: _median([r for t in ts
+                                             for r in t[n]["call_s"]])
+                              for side, ts in sides.items()},
+            "stage_ms_median": {
+                side: {s: _median([m.get(s, 0.0) for t in ts
+                                   for m in t[n]["stage_ms"]])
+                       for s in stage_names}
+                for side, ts in sides.items()}}
+    print(json.dumps(summary))
+    return 0 if same and not bad else 1
 
 
 def _launch_row(fn, args, kw, reps) -> dict:
@@ -911,6 +1006,12 @@ def main() -> int:
                     help="the int32+wvx corpus: OLD NEW in turns")
     ap.add_argument("--wvx-turn", action="store_true",
                     help="measure the root OLD's wvx path in this process")
+    ap.add_argument("--e2e", action="store_true",
+                    help="decode_states on the lossless, DSD and mixed "
+                    "calls: OLD NEW in turns")
+    ap.add_argument("--e2e-turn", action="store_true",
+                    help="measure the root OLD's decode_states calls in "
+                    "this process")
     ap.add_argument("--sass", action="store_true",
                     help="compare OLD's and NEW's SASS of SASS_SOURCES")
     a = ap.parse_args()
@@ -929,6 +1030,13 @@ def main() -> int:
     if a.encode_turn:
         print(json.dumps(measure_encode(a.old, a.reps, a.calls)))
         return 0
+    if a.e2e_turn:
+        print(json.dumps(measure_e2e(a.old, a.calls)))
+        return 0
+    if a.e2e:
+        if not (a.old and a.new):
+            ap.error("--e2e takes OLD_ROOT and NEW_ROOT")
+        return ab_e2e(a.old, a.new, a.calls)
     if a.wvx_turn:
         print(json.dumps(measure_wvx(a.old, a.reps, a.calls)))
         return 0

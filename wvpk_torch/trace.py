@@ -2,9 +2,9 @@
 
 The reference's only instrumentation is a Stopwatch around the decode loop
 (WvDemo.cs:107,137). Here: named per-stage wall timers collected per decode
-(host parse / staging / entropy / decorr / post / fixup / transfer) and a
-samples/s gauge. (The JAX package's XLA-level profiler context is not
-carried over; its torch.profiler counterpart is still to come.)
+(host parse / staging / launch / transfer / finalize) and a samples/s
+gauge, plus `torch_trace`, a torch.profiler trace (the counterpart of
+wvpk's XLA-level `xla_trace`).
 """
 
 from __future__ import annotations
@@ -58,6 +58,28 @@ def mark(name: str, t0: float) -> float:
     if sink is not None:
         sink[name] += now - t0
     return now
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str, device="cuda"):
+    """A torch.profiler trace of the block, written to `log_dir` as
+    `torch_trace.json` (Chrome trace format: chrome://tracing, Perfetto):
+    host activity, and the device's kernels and copies when `device` is a
+    CUDA device. Yields the profiler (`key_averages()` for sums by
+    name)."""
+    import os
+
+    import torch
+
+    from .device import resolve
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if resolve(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "torch_trace.json"))
 
 
 def format_report(sink: dict, total_samples: int | None = None) -> str:
