@@ -1,0 +1,8 @@
+"""finalize_ms (ms a call, program span): the port's `trace.collect()`
+stage "finalize" summed over the traced window's calls, over the calls."""
+
+
+def read(run):
+    if run.op != "decode" or not run.calls or "finalize" not in run.stages:
+        return None
+    return run.stages["finalize"] / run.calls * 1e3

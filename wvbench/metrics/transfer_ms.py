@@ -1,0 +1,8 @@
+"""transfer_ms (ms a call, program span): the port's `trace.collect()`
+stage "transfer" summed over the traced window's calls, over the calls."""
+
+
+def read(run):
+    if run.op != "decode" or not run.calls or "transfer" not in run.stages:
+        return None
+    return run.stages["transfer"] / run.calls * 1e3
