@@ -2268,7 +2268,7 @@ def encode_e2e(name, track, dev, per_call, **options):
                 "launches": launches,
                 "launches_per_call": {k: v / ENC_CALLS
                                       for k, v in launches.items()},
-                "last_call_stage_seconds": dict(stages),
+                "last_call_stage_seconds": stages.seconds(),
                 "last_call_s": dt}
 
 
@@ -2585,7 +2585,7 @@ def delivery_turns(states, frames, dev):
     call allocates slows its finalize, decode_phase)."""
     from wvpk_torch import trace
     from wvpk_torch.config import set_options
-    from wvpk_torch.engine import decode_states, pipeline, xferstats
+    from wvpk_torch.engine import decode_states, pipeline
 
     res = {}
     ref = None
@@ -2598,7 +2598,6 @@ def delivery_turns(states, frames, dev):
             for rep in range(1 + DELIVERY_CALLS):
                 results = None
                 _reset(counters)
-                xferstats.reset()
                 with trace.collect() as stages:
                     t0 = time.perf_counter()
                     results = decode_states(states, dev)
@@ -2606,7 +2605,7 @@ def delivery_turns(states, frames, dev):
                     dt = time.perf_counter() - t0
                 if rep:
                     r["msamples_per_s"].append(frames / dt / 1e6)
-                    for k, v in stages.items():
+                    for k, v in stages.seconds().items():
                         splits.setdefault((ch, k), []).append(v)
                 if rep == 1:
                     digest = _digest(results)
@@ -2615,7 +2614,11 @@ def delivery_turns(states, frames, dev):
                         raise AssertionError(f"delivery CH={ch}: blocks "
                                              "differ from the first call's")
                     r["equal"] = True
-            r["xferstats"] = dict(xferstats.counters)
+            r["transfer_bytes"] = {
+                "h2d": stages.get("launch#h2d_bytes", 0),
+                # copies made at the fetch, or queued ahead (chunked)
+                "d2h": stages.get("transfer.copy#bytes", 0)
+                + stages.get("transfer.enqueue#bytes", 0)}
             r["launches"] = {k: fn.launches for k, fn in counters.items()
                              if fn.launches}
             r["instances"] = _instances()

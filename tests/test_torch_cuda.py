@@ -1176,6 +1176,45 @@ def test_chunked_delivery_on_the_card(cuda, ch):
         _same(w, g)
 
 
+@pytest.mark.parametrize("ch", [0, 2])
+def test_fetch_spans_on_the_card(cuda, ch):
+    """Traced on the card: a single fetch counts its copy's bytes in
+    `transfer.copy`, chunked delivery where each copy is queued
+    (`transfer.enqueue`); both wait for the device in `transfer.wait`
+    and lie within `transfer`."""
+    from wvpk_torch import trace
+    from wvpk_torch.config import set_options
+    from wvpk_torch.engine import pipeline
+
+    states = _mixed_chain_states()
+    fetched = []
+
+    def finish(handle, _finish=pipeline._finish_fetch):
+        out = _finish(handle)
+        fetched.append(sum(a.nbytes for a in out))
+        return out
+
+    set_options(delivery_chunk_blocks=ch)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(pipeline, "_finish_fetch", finish)
+    try:
+        chunks = len(pipeline._chunks(states))
+        with trace.collect() as sink:
+            decode_states(states, device=cuda)
+    finally:
+        mp.undo()
+        set_options(delivery_chunk_blocks=0)
+    where = "transfer.enqueue" if ch else "transfer.copy"
+    other = "transfer.copy" if ch else "transfer.enqueue"
+    assert len(fetched) == chunks and (chunks > 1) == bool(ch)
+    assert sink[f"{where}#bytes"] == sum(fetched)
+    assert f"{other}#bytes" not in sink
+    assert sink["transfer.wait"] > 0
+    assert sink["transfer"] >= sum(sink[k] for k in (
+        "transfer.enqueue", "transfer.wait", "transfer.copy",
+        "transfer.split"))
+
+
 def test_hw_sweep_on_the_card(cuda):
     from wvpk_torch.testgen.fuzzspec import run_hw_sweep
 

@@ -1,6 +1,7 @@
 """wvpk_torch's delivery and debug modules on the CPU, against wvpk:
 chunked delivery (`delivery_chunk_blocks`) equal to the single fetch on a
-mixed PCM + DSD call, the transfer counts (engine/xferstats.py), the
+mixed PCM + DSD call, the transfer counts (the trace collector's
+`launch#h2d_bytes` and `transfer.copy#bytes`), the
 oracle check and debug.py, the torch.profiler trace, the sweep's spec
 generators and fault injectors (testgen/fuzzspec.py, testgen/faults.py)
 with the sweep itself, and the CLI's --report and --verify-checksums.
@@ -25,7 +26,7 @@ from wvpk_torch.cli import main as cli_main
 from wvpk_torch.config import set_options
 from wvpk_torch.container import parse_blocks
 from wvpk_torch.engine import decode_states, dsd_pipeline, pipeline, \
-    staging, xferstats
+    staging
 from wvpk_torch.report import DecodeReport
 from wvpk_torch.testgen import faults, fuzzspec
 
@@ -118,23 +119,30 @@ def test_chunked_delivery_equals_single_fetch(ch, options, monkeypatch):
     assert len(chunks) > 1 and max(len(c) for c in chunks) <= ch
     fetched = _count_fetches(monkeypatch)
     staged = _count_staged(monkeypatch)
-    xferstats.reset()
-    _same_blocks(decode_states(states, "cpu"), single)
+    with trace.collect() as sink:
+        _same_blocks(decode_states(states, "cpu"), single)
     assert len(fetched) == len(chunks)
-    assert xferstats.counters["d2h"] == sum(fetched)
-    assert xferstats.counters["h2d"] == sum(staged)
+    assert sink["transfer.copy#bytes"] == sum(fetched)
+    assert sink["launch#h2d_bytes"] == sum(staged)
 
 
 def test_single_fetch_transfer_counts(monkeypatch):
     states = _mixed_states()
     fetched = _count_fetches(monkeypatch)
     staged = _count_staged(monkeypatch)
-    xferstats.reset()
-    decode_states(states, "cpu")
+    with trace.collect() as sink:
+        decode_states(states, "cpu")
     assert len(fetched) == 1
-    assert xferstats.counters == {"h2d": sum(staged), "d2h": fetched[0]}
-    xferstats.reset()
-    assert xferstats.counters == {"h2d": 0, "d2h": 0}
+    assert (sink["launch#h2d_bytes"], sink["transfer.copy#bytes"]) \
+        == (sum(staged), fetched[0])
+    # a decode outside a collector counts nowhere, and each collector
+    # counts from nothing
+    h2d = sum(staged)
+    decode_states(states, "cpu")
+    assert sink["launch#h2d_bytes"] == h2d and sum(staged) == 2 * h2d
+    with trace.collect() as fresh:
+        pass
+    assert fresh == {} and fresh.spans == []
 
 
 def test_chunks_follow_profile_and_chain():

@@ -758,7 +758,7 @@ class Refuse:
 
 sys.meta_path.insert(0, Refuse())
 import wvpk_torch.api, wvpk_torch.cli, wvpk_torch.encode, wvpk_torch.engine
-import wvpk_torch.debug, wvpk_torch.engine.xferstats, wvpk_torch.parallel
+import wvpk_torch.debug, wvpk_torch.parallel
 import wvpk_torch.parallel.dryrun, wvpk_torch.report, wvpk_torch.testgen
 import wvpk_torch.testgen.faults, wvpk_torch.testgen.fuzzspec
 from wvpk_torch.cli import main
@@ -780,7 +780,7 @@ def _seam_static(tmp_path):
     assert len(files) > 30
     names = {str(f.relative_to(REPO / "wvpk_torch")) for f in files}
     assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/dryrun.py",
-            "debug.py", "report.py", "trace.py", "engine/xferstats.py",
+            "debug.py", "report.py", "trace.py",
             "testgen/fuzzspec.py", "testgen/faults.py"} <= names
     bad = [b for f in files + [REPO / "chip_smoke.py"]
            for b in _banned_imports(f)]

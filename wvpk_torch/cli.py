@@ -174,7 +174,7 @@ def _decode_open(wpc, path, out_path, quiet, show_trace, raw, verify_md5,
     if report_json:
         print(build_report(wpc, file=path, decode_seconds=t1 - t0,
                            samples_decoded=total_unpacked,
-                           stage_seconds=stages).to_json())
+                           stage_seconds=stages.seconds()).to_json())
 
     num_samples = api.WavpackGetNumSamples(wpc)
     if num_samples != -1 and total_unpacked != num_samples:

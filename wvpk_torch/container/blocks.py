@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from .. import trace
 from ..consts import MAX_BLOCK_SAMPLES
 from .blockstate import BlockState, ContextUpdates, decode_block_state
 from .header import HEADER_SIZE, BlockHeader, scan_headers
@@ -70,6 +71,7 @@ def pair_wvc(blocks: list[Block], wvc_data: bytes) -> int:
     return paired
 
 
+@trace.stage("parse")
 def parse_blocks(data: bytes, strict: bool = False) -> list[Block]:
     """Index every decodable block. Truncated or metadata-corrupt blocks
     are skipped (their sample range gap-fills as zeros downstream) — the
@@ -80,11 +82,14 @@ def parse_blocks(data: bytes, strict: bool = False) -> list[Block]:
     PCM blocks without context-update metadata parse through the native C
     walker (wvpk_parse_block, ~10x the Python walk); DSD blocks, blocks
     carrying context updates (config/riff/channel info) and malformed
-    blocks take the exact-semantics Python path."""
+    blocks take the exact-semantics Python path. Traced as the `parse`
+    span, counting the blocks returned and those that took the Python
+    path (`#blocks`, `#python_blocks`)."""
     from ..native import parse_block_native
     from .blockstate import state_from_native
 
     blocks = []
+    python_blocks = 0
     for hdr in scan_headers(data):
         if hdr.stream_position + hdr.ck_size + 8 > len(data):
             if strict:
@@ -104,6 +109,7 @@ def parse_blocks(data: bytes, strict: bool = False) -> list[Block]:
             state, updates = state_from_native(hdr, arr, data)
             blocks.append(Block(hdr, [], state, updates))
             continue
+        python_blocks += 1
         try:
             items = iter_metadata(data, hdr)
             state, updates = decode_block_state(hdr, items)
@@ -112,4 +118,6 @@ def parse_blocks(data: bytes, strict: bool = False) -> list[Block]:
                 raise
             continue
         blocks.append(Block(hdr, items, state, updates))
+    trace.count("blocks", len(blocks))
+    trace.count("python_blocks", python_blocks)
     return blocks

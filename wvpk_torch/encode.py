@@ -23,7 +23,7 @@ from dataclasses import replace
 
 import numpy as np
 
-from . import consts
+from . import consts, trace
 from .testgen.encoder import EncodeSpec, mkmeta
 from .testgen.multichannel import encode_multichannel
 
@@ -347,6 +347,7 @@ def _spec_from_stats(st: dict, *, sample_rate: int = 44100,
     )
 
 
+@trace.stage("encode")
 def encode_device(pcm: np.ndarray, *, device="cuda", warmup: int = 512,
                   mesh: list | None = None, **options) -> bytes:
     """Encode integer or float32 PCM to a WavPack stream on `device`

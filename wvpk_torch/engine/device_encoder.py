@@ -14,17 +14,19 @@ independent lanes. The kernels write each lane's payload, final flush
 included, and the block CRCs reduce on the device, so one small fetch
 (bit totals and CRC accumulators) and one payload fetch come back.
 
-The stages, each marked for `trace`: `stage_lanes` (enc_prep: joint
-transform and lane staging; enc_warm: the warm scan; enc_meta: per-block
-metadata and seeds, quantized exactly as the metadata stores them),
-`scan_lanes` (enc_scan), then enc_fetch, enc_pack (each lane's payload
-bytes) and enc_assemble (headers, metadata, CRCs). Container assembly
-reuses the host encoder's helpers so the two encoders cannot drift.
+The stages, each a `trace` span under the `encode` root: `stage_lanes`
+(enc_prep: joint transform and lane staging; enc_warm: the warm scan,
+with enc_warm.fetch its state's copy to the host, which waits for the
+scan; enc_meta: per-block metadata and seeds, quantized exactly as the
+metadata stores them), `scan_lanes` (enc_scan: enqueue), then enc_fetch
+(the first synchronising copy, which waits for the scans), enc_pack
+(each lane's payload bytes) and enc_assemble (headers, metadata, CRCs).
+Container assembly reuses the host encoder's helpers so the two encoders
+cannot drift.
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -211,70 +213,70 @@ def stage_lanes(pcm: np.ndarray, spec: EncodeSpec, warmup: int,
         t = {k: torch.from_numpy(v).to(device) for k, v in (
             ("targets", targ_d), ("terms", terms16), ("deltas", deltas16),
             ("num_terms", nt))}
-    _t = time.perf_counter()
     # per-block seeds: fresh (zeros) or WARM — adapt the decorr state
     # over the block's own first `warmup` samples on device, quantize it
     # exactly like the metadata stores it, and seed the main scan with
     # the decoder-derived values (a lookahead-adaptation strategy that
     # recovers most of the fresh-seed compression cost while keeping
     # blocks independent lanes)
-    warm = warmup > 0 and len(spec.terms) > 0
-    if warm:
-        K = min(warmup, T)
-        state = sharded_invert_warm_state(
-            t["targets"][:K], t["terms"], t["deltas"], t["num_terms"],
-            mesh, mono=mono, static_terms=tuple(spec.terms))
-        rot = (np.arange(8) + (K & 7)) & 7          # _rotate_ring order
-        wfa, wfb, hfa, hfb = (s.cpu().numpy() for s in state)
-        hfa, hfb = hfa[:, :, rot], hfb[:, :, rot]
-    _t = trace.mark("enc_warm", _t)
-
-    med0 = np.zeros((L, 2, 3), np.int64)
-    slow0 = np.zeros((L, 2), np.int64)
-    acc0 = np.zeros((L, 2), np.int64)
-    delta0 = np.zeros((L, 2), np.int64)
-    w0a = np.zeros((L, 16), np.int64)
-    w0b = np.zeros((L, 16), np.int64)
-    h0a = np.zeros((L, 16, 8), np.int64)
-    h0b = np.zeros((L, 16, 8), np.int64)
-    metas = []
-    for i, s0 in enumerate(starts):
-        passes = [EncPass(t_, d) for t_, d in zip(spec.terms, spec.deltas)]
+    with trace.stage("enc_warm"):
+        warm = warmup > 0 and len(spec.terms) > 0
         if warm:
-            for j, p in enumerate(passes):
-                p.wa, p.wb = int(wfa[i, j]), int(wfb[i, j])
-                p.sa = [int(x) for x in hfa[i, j]]
-                p.sb = [int(x) for x in hfb[i, j]]
-        w = _make_words_state(spec, _auto_medians(
-            _stored_domain(pcm[s0:s0 + bs], spec)))
-        tmd, wmd, smd = _quantize_decorr(passes, mono)
-        emd = _quantize_entropy(w, mono)      # quantizes w's medians too
-        hmd = None
-        if hybrid:
-            # quantizes w's slow_level/bitrate state too (encoder.py:504)
-            hmd = mkmeta(consts.ID_HYBRID_PROFILE,
-                         _quantize_hybrid(spec, w, mono))
-            if spec.version == 0x402:
-                # v4.02 hybrid prepends 2 bytes/channel that readers
-                # skip (UnpackUtils.cs:277-283)
-                smd = b"\x00\x00" * (1 if mono else 2) + smd
-            slow0[i] = (w.c[0].slow_level, w.c[1].slow_level)
-            acc0[i] = w.bitrate_acc
-            delta0[i] = w.bitrate_delta
-        if warm:
-            for j, p in enumerate(passes):
-                _zero_underived_slots(p)
-                w0a[i, j], w0b[i, j] = p.wa, p.wb
-                h0a[i, j] = p.sa
-                h0b[i, j] = p.sb
-        med0[i, 0] = w.c[0].median
-        med0[i, 1] = w.c[1].median
-        metas.append((tmd, wmd, smd, emd, hmd))
-    t.update({k: torch.from_numpy(v).to(device) for k, v in (
-        ("w0a", w0a), ("w0b", w0b), ("h0a", h0a), ("h0b", h0b),
-        ("med0", med0), ("slow0", slow0), ("acc0", acc0),
-        ("delta0", delta0), ("nvals", nsamp * C))})
-    trace.mark("enc_meta", _t)
+            K = min(warmup, T)
+            state = sharded_invert_warm_state(
+                t["targets"][:K], t["terms"], t["deltas"], t["num_terms"],
+                mesh, mono=mono, static_terms=tuple(spec.terms))
+            rot = (np.arange(8) + (K & 7)) & 7          # _rotate_ring order
+            with trace.stage("enc_warm.fetch"):
+                wfa, wfb, hfa, hfb = (s.cpu().numpy() for s in state)
+            hfa, hfb = hfa[:, :, rot], hfb[:, :, rot]
+    with trace.stage("enc_meta"):
+        med0 = np.zeros((L, 2, 3), np.int64)
+        slow0 = np.zeros((L, 2), np.int64)
+        acc0 = np.zeros((L, 2), np.int64)
+        delta0 = np.zeros((L, 2), np.int64)
+        w0a = np.zeros((L, 16), np.int64)
+        w0b = np.zeros((L, 16), np.int64)
+        h0a = np.zeros((L, 16, 8), np.int64)
+        h0b = np.zeros((L, 16, 8), np.int64)
+        metas = []
+        for i, s0 in enumerate(starts):
+            passes = [EncPass(t_, d)
+                      for t_, d in zip(spec.terms, spec.deltas)]
+            if warm:
+                for j, p in enumerate(passes):
+                    p.wa, p.wb = int(wfa[i, j]), int(wfb[i, j])
+                    p.sa = [int(x) for x in hfa[i, j]]
+                    p.sb = [int(x) for x in hfb[i, j]]
+            w = _make_words_state(spec, _auto_medians(
+                _stored_domain(pcm[s0:s0 + bs], spec)))
+            tmd, wmd, smd = _quantize_decorr(passes, mono)
+            emd = _quantize_entropy(w, mono)      # quantizes w's medians too
+            hmd = None
+            if hybrid:
+                # quantizes w's slow_level/bitrate state too (encoder.py:504)
+                hmd = mkmeta(consts.ID_HYBRID_PROFILE,
+                             _quantize_hybrid(spec, w, mono))
+                if spec.version == 0x402:
+                    # v4.02 hybrid prepends 2 bytes/channel that readers
+                    # skip (UnpackUtils.cs:277-283)
+                    smd = b"\x00\x00" * (1 if mono else 2) + smd
+                slow0[i] = (w.c[0].slow_level, w.c[1].slow_level)
+                acc0[i] = w.bitrate_acc
+                delta0[i] = w.bitrate_delta
+            if warm:
+                for j, p in enumerate(passes):
+                    _zero_underived_slots(p)
+                    w0a[i, j], w0b[i, j] = p.wa, p.wb
+                    h0a[i, j] = p.sa
+                    h0b[i, j] = p.sb
+            med0[i, 0] = w.c[0].median
+            med0[i, 1] = w.c[1].median
+            metas.append((tmd, wmd, smd, emd, hmd))
+        t.update({k: torch.from_numpy(v).to(device) for k, v in (
+            ("w0a", w0a), ("w0b", w0b), ("h0a", h0a), ("h0b", h0b),
+            ("med0", med0), ("slow0", slow0), ("acc0", acc0),
+            ("delta0", delta0), ("nvals", nsamp * C))})
     return Lanes(spec, pcm, stored, starts, nsamp, mono, hybrid, metas, t,
                  mesh)
 
@@ -306,6 +308,7 @@ def scan_lanes(lanes: Lanes):
     return words, total, crc_acc
 
 
+@trace.stage("encode")
 def encode_blocks_device(pcm: np.ndarray, spec: EncodeSpec,
                          warmup: int = 0, *, device="cuda",
                          mesh: list | None = None,
@@ -357,23 +360,22 @@ def encode_blocks_device(pcm: np.ndarray, spec: EncodeSpec,
     mesh = make_mesh(devices=[device] if mesh is None else mesh)
     lanes = stage_lanes(pcm, spec, warmup, mesh[0], pad_to, mesh)
 
-    _t = time.perf_counter()
-    words, total, crc_acc = scan_lanes(lanes)
-    _t = trace.mark("enc_scan", _t)
-    small = torch.stack([total, crc_acc]).cpu().numpy()
+    with trace.stage("enc_scan"):
+        words, total, crc_acc = scan_lanes(lanes)
+    with trace.stage("enc_fetch"):
+        small = torch.stack([total, crc_acc]).cpu().numpy()
     total, crc_acc = small[0], small[1]
     if total.size and int(total.max()) > 32 * words.shape[1]:
         # the kernels and the plain packer drop words past the capacity
         raise RuntimeError(
             f"device encoder: a block's payload ({int(total.max())} bits) "
             f"overflows its capacity ({32 * words.shape[1]} bits)")
-    _t = trace.mark("enc_fetch", _t)
-    payloads = payload_bytes(words, total)
-    _t = trace.mark("enc_pack", _t)
-    out = _assemble(lanes, payloads, crc_acc, start_sample=start_sample,
-                    first=first, last=last, md5_digest=md5_digest)
-    trace.mark("enc_assemble", _t)
-    return out
+    with trace.stage("enc_pack"):
+        payloads = payload_bytes(words, total)
+    with trace.stage("enc_assemble"):
+        return _assemble(lanes, payloads, crc_acc,
+                         start_sample=start_sample, first=first, last=last,
+                         md5_digest=md5_digest)
 
 
 def _assemble(lanes: Lanes, payloads, crc_acc, *, start_sample, first,

@@ -28,13 +28,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import consts
+from .. import consts, trace
 from ..container.blockstate import BlockState
 from ..device import run_side_by_side
 from ..ops.dsd import dsd_raw_crc
 from ..ops.dsd_select import dsd_fast_decode_any, dsd_high_decode_any
 from ..parallel.mesh import shard_dsd_groups
-from . import xferstats
 from .fused import build_blob, to_device, unpack_blob
 
 
@@ -118,7 +117,7 @@ def group_tensors(g: DsdGroup, device: torch.device
     """A group's arrays on `device`: the payload bytes as one uint8 copy,
     the rest as one int32 blob."""
     blob, metas = build_blob(g.arrays)
-    xferstats.add("h2d", blob.nbytes + g.data.nbytes)
+    trace.count("h2d_bytes", blob.nbytes + g.data.nbytes)
     t = unpack_blob(to_device(blob, device), metas)
     t["data"] = to_device(g.data, device)
     return t
@@ -203,11 +202,13 @@ def launch_dsd_states(states: list[BlockState], device: torch.device,
     (parallel.mesh.shard_dsd_groups), each a launch on its device; mode 0,
     a host byte copy and a CRC, stays whole on the mesh's first device, as
     in wvpk."""
-    groups, devices = shard_dsd_groups(group_dsd(states),
-                                       mesh or [device])
-    staged = [group_tensors(g, dev) for g, dev in zip(groups, devices)]
-    return [deliver_group(g, *res)
-            for g, res in zip(groups, decode_groups(groups, staged))]
+    with trace.stage("staging"):
+        groups, devices = shard_dsd_groups(group_dsd(states),
+                                           mesh or [device])
+    with trace.stage("launch"):
+        staged = [group_tensors(g, dev) for g, dev in zip(groups, devices)]
+        return [deliver_group(g, *res)
+                for g, res in zip(groups, decode_groups(groups, staged))]
 
 
 def finalize_dsd_group(ld: LaunchedDsd, crcerr: np.ndarray,

@@ -14,6 +14,16 @@ blocks go in chunks, each chunk's copy overlapping the next chunk's
 staging and launches (`run_decode`); with a mesh (parallel/mesh.py) each
 bucket's and group's lanes are sharded over several devices.
 
+Traced (trace.py), a call is the `decode` span (`#blocks`, `#buckets`,
+`#chunks`) over `staging`, `launch` (enqueue only; `#h2d_bytes`),
+`transfer` and `finalize`, a chunk at a time; `transfer` holds
+`transfer.enqueue` (`_start_fetch`), then `transfer.wait` (the host
+blocked on the queued work: under a collector the stream, or the event
+an overlapped copy waits for, is synchronised before the copy),
+`transfer.copy` (a copy made there, with `#bytes`; with chunked
+delivery, the wait for the tail of the copy queued at enqueue, whose
+bytes count there) and `transfer.split`.
+
 A hybrid float block paired with a .wvc decodes with the float restore
 (the profile's `is_float`, as both oracles do, ref/oracle.py), so the port
 gives the oracle's samples; wvpk's fused path keeps a fault there: its wvc
@@ -33,7 +43,6 @@ from ..container.blockstate import BlockState
 from ..debug import check_against_oracle
 from ..device import copy_stream
 from ..parallel.mesh import launch_sharded_bucket, make_mesh
-from . import xferstats
 from .dsd_pipeline import fetch_list, finalize_dsd_groups, launch_dsd_states
 from .fused import DEVICE_FIELDS, WVX_FIELDS, deliver, fused_decode, \
     fused_decode_wvc, fused_decode_wvx
@@ -161,53 +170,73 @@ def finalize_bucket(lb: LaunchedBucket, cm: np.ndarray,
     return results
 
 
+@trace.stage("transfer.enqueue")
 def _start_fetch(arrs: list[torch.Tensor], overlap: bool = False):
     """Queue ONE device-to-host copy per device for a list of int32 tensors
     (flattened and concatenated on their device), so per-copy latency is
     paid once however many buckets a call has. With `overlap`, a CUDA
     device's copy goes without blocking into a pinned host tensor on the
-    device's copy stream (forked from its current stream), closed by an
-    event, and the host goes on while it runs; otherwise _finish_fetch
-    makes the copy. Returns the handle _finish_fetch takes."""
+    device's copy stream, between two events (`ready`, recorded on the
+    current stream, which the copy waits for, and `done`), and the host
+    goes on while it runs; its bytes count here (`#bytes`), as the copy
+    is queued. Otherwise _finish_fetch makes the copy. Returns the handle
+    _finish_fetch takes."""
     by_dev: dict[torch.device, list[int]] = {}
     for i, a in enumerate(arrs):
         by_dev.setdefault(a.device, []).append(i)
     parts = []
     for dev, idx in by_dev.items():
         blob = torch.cat([arrs[i].reshape(-1) for i in idx])
-        event = None
+        events = None
         if overlap and dev.type == "cuda":
             host = torch.empty(blob.shape, dtype=blob.dtype, pin_memory=True)
             stream = copy_stream(dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))
+            ready, done = torch.cuda.Event(), torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+            stream.wait_event(ready)
             with torch.cuda.stream(stream):
                 host.copy_(blob, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(stream)
+                done.record(stream)
             blob.record_stream(stream)
-            blob = host
-        parts.append((blob, event, idx))
+            trace.count("bytes", host.nbytes)
+            blob, events = host, (ready, done)
+        parts.append((blob, events, idx))
     return parts, [tuple(a.shape) for a in arrs]
 
 
 def _finish_fetch(handle) -> list[np.ndarray]:
-    """The host arrays of a _start_fetch handle, in the order given (an
-    overlapped copy is waited for on its event)."""
+    """The host arrays of a _start_fetch handle, in the order given.
+    `transfer.wait` holds the host's wait for the queued device work (an
+    overlapped copy's `ready` event; traced, the blob's stream is
+    synchronised before a copy made here, which would wait for it anyway),
+    `transfer.copy` the copy: one made here, with its `#bytes`, or the
+    wait for an overlapped copy's `done` event, which ran while the host
+    went on and whose bytes counted at `_start_fetch`."""
     parts, shapes = handle
     out: list = [None] * len(shapes)
-    for blob, event, idx in parts:
-        if event is not None:
-            event.synchronize()
-        host = blob.cpu().numpy()
-        xferstats.add("d2h", host.nbytes)
-        pos = 0
-        for i in idx:
-            n = int(np.prod(shapes[i]))
-            out[i] = host[pos:pos + n].reshape(shapes[i])
-            pos += n
+    for blob, events, idx in parts:
+        with trace.stage("transfer.wait"):
+            if events is not None:
+                events[0].synchronize()
+            elif blob.is_cuda and trace.active():
+                torch.cuda.current_stream(blob.device).synchronize()
+        with trace.stage("transfer.copy"):
+            if events is not None:
+                events[1].synchronize()
+                host = blob.numpy()
+            else:
+                host = blob.cpu().numpy()
+                trace.count("bytes", host.nbytes)
+        with trace.stage("transfer.split"):
+            pos = 0
+            for i in idx:
+                n = int(np.prod(shapes[i]))
+                out[i] = host[pos:pos + n].reshape(shapes[i])
+                pos += n
     return out
 
 
+@trace.stage("transfer")
 def _fetch_arrays(arrs: list[torch.Tensor]) -> list[np.ndarray]:
     """One batched device-to-host copy a device for a list of int32
     tensors (_start_fetch), made now."""
@@ -246,6 +275,7 @@ def decode_states(states: list[BlockState],
     return run_decode(states, make_mesh(devices=[device]))
 
 
+@trace.stage("decode")
 def run_decode(states: list[BlockState],
                mesh: list[torch.device]) -> list[DecodedBlock]:
     """decode_states with every PCM bucket's and DSD group's lanes sharded
@@ -274,14 +304,16 @@ def run_decode(states: list[BlockState],
             pcm_states.append(st)
             pcm_indices.append(i)
     chunks = _chunks(pcm_states)
-    with trace.stage("launch"):
-        dsd_launched = (launch_dsd_states(dsd_states, mesh[0], mesh)
-                        if dsd_states else [])
+    trace.count("blocks", len(states))
+    trace.count("chunks", len(chunks))
+    dsd_launched = (launch_dsd_states(dsd_states, mesh[0], mesh)
+                    if dsd_states else [])
 
     def launch(k):
         chunk = chunks[k]
         with trace.stage("staging"):
             buckets = group_blocks([pcm_states[i] for i in chunk])
+        trace.count("buckets", len(buckets))
         with trace.stage("launch"):
             launched = [lb for b in buckets
                         for lb in launch_sharded_bucket(b, mesh)]

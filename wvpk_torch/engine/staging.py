@@ -20,12 +20,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import consts
+from .. import consts, trace
 from ..config import get_options
 from ..container.blockstate import BlockState
 from ..ops.bitio import pack_streams
 from ..tables import i32
-from . import xferstats
 from .fused import DEVICE_FIELDS, NARROW, TERM_FIELDS, WVC_FIELDS, \
     WVX_FIELDS, build_blob, restore_terms, to_device, unpack_blob
 
@@ -309,5 +308,5 @@ def bucket_tensors(bucket, device: torch.device) -> dict[str, torch.Tensor]:
         arrays["false_stereo"] = np.asarray(
             [bool(st.flags & consts.FALSE_STEREO) for st in bucket.states])
     blob, metas = build_blob(arrays, NARROW)
-    xferstats.add("h2d", blob.nbytes)
+    trace.count("h2d_bytes", blob.nbytes)
     return restore_terms(unpack_blob(to_device(blob, device), metas))

@@ -501,7 +501,8 @@ def measure_e2e(root: str, calls: int) -> dict:
                 dt = time.perf_counter() - t0
             if rep:
                 secs.append(dt)
-                stages.append({k: 1000 * v for k, v in sink.items()})
+                stages.append({k: 1000 * v
+                               for k, v in sink.seconds().items()})
         h = hashlib.sha256()
         for r in results:
             h.update(r.samples.tobytes())
@@ -704,7 +705,8 @@ def measure_encode(root: str, reps: int, calls: int) -> dict:
                 dt = time.perf_counter() - t0
             if rep:
                 rates.append(len(track) / dt / 1e6)
-                stages.append({k: 1000 * v for k, v in st.items()})
+                stages.append({k: 1000 * v
+                               for k, v in st.seconds().items()})
         e2e[mode] = {"msamples_per_s": rates, "stage_ms": stages,
                      "digest": hashlib.sha256(wv).hexdigest()[:16]}
     return {"root": root, "kernels": kernels, "encode_device": e2e,
