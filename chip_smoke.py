@@ -529,6 +529,17 @@ def _chain_blind(plain):
     return run
 
 
+def _plain_packed(*args, pack, **kw):
+    """ops/decorr.py::decorr_post_packed with `pack`'s tensors on the
+    device of the inputs (check_pair moves only the arguments to the
+    CPU)."""
+    from wvpk_torch.ops import decorr
+
+    dev = args[0].device
+    pack = pack._replace(broke=pack.broke.to(dev), shift=pack.shift.to(dev))
+    return _chain_blind(decorr.decorr_post_packed)(*args, pack=pack, **kw)
+
+
 def _kernels():
     """The kernel wrappers and their plain versions, by name."""
     from wvpk_torch.ops import decorr, decorr_cuda, dsd, dsd_cuda, \
@@ -542,6 +553,7 @@ def _kernels():
                             *a, hybrid=True, wvc=True, **k)),
         "decorr": (decorr_cuda.decorr_post_cuda, _chain_blind(
             decorr.decorr_post)),
+        "decorr_packed": (decorr_cuda.decorr_post_cuda, _plain_packed),
         "decorr_wvc": (decorr_cuda.decorr_post_wvc_cuda, _chain_blind(
             decorr.decorr_post_wvc)),
         "wvc": (wvc_cuda.wvc_corrections_cuda, entropy.wvc_corrections),
@@ -572,14 +584,19 @@ def compare_bucket(bucket, device, timed, run_plain=True, plain_cpu=None):
     """Each kernel of the bucket's decode against its plain version on
     the same inputs (the kernels' outputs feed the next step): lossless
     buckets run the entropy and decorrelation kernels, hybrid buckets the
-    entropy kernel's hybrid profile, wvc buckets the entropy kernel's wvc
+    entropy kernel's hybrid profile; a bucket of pipeline.packed_route
+    (lossless or hybrid) also the decorrelation kernel's packed store, the
+    one its decode launches (`decorr_packed`, against
+    ops/decorr.py::decorr_post_packed: payload, CRC and first_bad), while
+    `decorr` is the (T, L, C) store; wvc buckets the entropy kernel's wvc
     profile, the correction scan and the decorrelation kernel's wvc arm,
     wvx buckets the wvx injection (its entropy and decorrelation kernels
     only feed it: the lossless phase holds them). Returns ({kernel name:
     {max_abs_err, ms, plain_ms, bytes, bound_ms}}, {kernel name: (its
     outputs, the plain version's or None)})."""
-    from wvpk_torch.engine.pipeline import _bucket_bps
+    from wvpk_torch.engine.pipeline import _bucket_bps, packed_route
     from wvpk_torch.engine.staging import bucket_tensors
+    from wvpk_torch.ops.decorr import Pack
     from wvpk_torch.ops.post import mask_muted
 
     if plain_cpu is None:
@@ -632,6 +649,12 @@ def compare_bucket(bucket, device, timed, run_plain=True, plain_cpu=None):
                 "decorr", "decorr_post", _decorr_args(t, res), dkw, hold,
                 need={0: samples},
                 out_need={0: delivered})
+        bps = packed_route(bucket)
+        if bps is not None:
+            pack = Pack(broke, t["shift"], bps, prof.hybrid)
+            pair("decorr_packed", "decorr_post[packed]", _decorr_args(t, res),
+                 dict(dkw, pack=pack), True, need={0: samples},
+                 out_need={0: delivered})
     if broke.any():
         raise AssertionError("corpus lanes hit an EOF break")
     if prof.has_wvx:
@@ -909,11 +932,18 @@ def _corpus_line(name, files, n_files, states, frames, t0):
 
 
 def phase_lossless(dev):
+    from wvpk_torch.engine.pipeline import packed_route
+    from wvpk_torch.engine.staging import group_blocks
+
     t0 = time.perf_counter()
     files, pcms = make_corpus()
     states, per_file = parse_corpus(files, N_FILES)
     frames = _frames(pcms, N_FILES)
     _corpus_line("lossless", files, N_FILES, states, frames, t0)
+    # every bucket's decode launches the packed store, so the (T, L, C)
+    # store's row counts no launch of the decode calls
+    if not all(packed_route(b) for b in group_blocks(states)):
+        raise AssertionError("lossless: a bucket is not packed")
     full = compare_phase("lossless", states, dev)
     full["decorr_generic"] = generic_decorr(states, dev, full["decorr"])
     launches = decode_phase("lossless", states, frames, dev,
@@ -1102,12 +1132,15 @@ def check_synthetic_chains(dev):
 
 def phase_mixed(dev, futures):
     """The mixed-chain corpus: its largest bucket's decorrelation kernels
-    against their plain versions on a CPU copy (one run per chain; the wvc
+    against their plain versions on a CPU copy (one run per chain; the
+    (T, L, C) store, the packed store the decode launches, and the wvc
     arm on the same residuals with corrections made from a seed),
     synthetic mixed buckets for every table chain, then
     decode_states as in 3, each table chain's kernel and the generic one
     launched. Returns ({kernel: results}, launches)."""
+    from wvpk_torch.engine.pipeline import packed_route
     from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+    from wvpk_torch.ops.decorr import Pack
     from wvpk_torch.ops.decorr_cuda import lane_runs
 
     t0 = time.perf_counter()
@@ -1123,20 +1156,27 @@ def phase_mixed(dev, futures):
     # the residuals from the entropy kernel (held on the lossless bucket)
     t = bucket_tensors(b, dev)
     args, ekw = _entropy_io(t, b.profile)
-    res = _kernels()["entropy"][0](*args, hybrid=False, **ekw)[0]
+    res, broke, _ = _kernels()["entropy"][0](*args, hybrid=False, **ekw)
     corr = torch.from_numpy(np.random.default_rng(79).integers(
         -2**12, 2**12, tuple(res.shape)).astype(np.int32)).to(dev)
     dargs = _decorr_args(t, res)
     kw = dict(mono=b.profile.mono, chain_segments=b.chain_segments)
     values = int(b.nsamples.sum()) * (1 if b.profile.mono else 2)
+    # every bucket's decode launches the packed store (the (T, L, C)
+    # store's row counts no launch of the decode calls)
+    bps = packed_route(b)
+    if not all(packed_route(x) for x in buckets):
+        raise AssertionError("mixed chains: a bucket is not packed")
+    pack = Pack(broke, t["shift"], bps, b.profile.hybrid)
     full = {}
-    for key, a, need in (
-            ("decorr", dargs, {0: 4 * values}),
+    for key, a, need, akw in (
+            ("decorr", dargs, {0: 4 * values}, kw),
+            ("decorr_packed", dargs, {0: 4 * values}, dict(kw, pack=pack)),
             ("decorr_wvc", dargs[:1] + (corr,) + dargs[1:],
-             {0: 4 * values, 1: 4 * values})):
+             {0: 4 * values, 1: 4 * values}, kw)):
         _got, _want, full[key] = check_pair(
-            f"{key} mixed chains", *_kernels()[key], a, kw, True,
-            need=need, out_need={0: 2 * values}, plain_cpu=True)
+            f"{key} mixed chains", *_kernels()[key], a, akw, True,
+            need=need, out_need={0: bps * values}, plain_cpu=True)
     runs = lane_runs(len(b.states), b.profile.mono,
                      chain_segments=b.chain_segments)
     print(json.dumps({"phase": "mixed_chains_kernels_vs_plain_on_cpu",
@@ -1158,6 +1198,7 @@ def phase_mixed(dev, futures):
 
 
 def phase_hybrid(dev):
+    from wvpk_torch.engine.pipeline import packed_route
     from wvpk_torch.engine.staging import group_blocks
 
     t0 = time.perf_counter()
@@ -1166,6 +1207,9 @@ def phase_hybrid(dev):
     frames = _frames(pcms, len(files) * HYBRID_COPIES)
     _corpus_line("hybrid", files, len(files) * HYBRID_COPIES, states,
                  frames, t0)
+    # the decode's decorrelation launches are all the packed store's
+    if not all(packed_route(b) for b in group_blocks(states)):
+        raise AssertionError("hybrid: a bucket is not packed")
     # the 64-lane slice takes the HYBRID_BALANCE bucket, the full bucket
     # is the largest (HYBRID_BITRATE alone): both profiles are held
     full = compare_phase(
@@ -2739,8 +2783,8 @@ def print_build(phase, names, seconds):
     kernels and both wvx kernels must have neither stack nor spills to be
     in registers (the run-time kernels keep their chains in local
     memory), or the run fails. The registers of the invert's, the
-    correction scan's and the wvx kernels' instances are listed by name,
-    and every kernel above FLAG_REGISTERS is named."""
+    correction scan's, the wvx and the decorrelation kernels' instances
+    are listed by name, and every kernel above FLAG_REGISTERS is named."""
     from wvpk_torch import _build
 
     ptxas = {k: ptxas_table(_build.ptxas_log[k]) for k in names
@@ -2767,7 +2811,7 @@ def print_build(phase, names, seconds):
         if not clean or not rows or count not in (None, len(rows)):
             bad.append(key)
     for key, src in (("invert", "encode_invert"), ("wvc", "wvc"),
-                     ("wvx", "wvx")):
+                     ("wvx", "wvx"), ("decorr", "decorr")):
         if src in ptxas:
             line[f"{key}_registers_stack"] = {
                 r["kernel"]: [r.get("registers"), r.get("stack")]
@@ -2934,14 +2978,21 @@ def main() -> int:
          h_launches["entropy"], hybrid["entropy"]),
         ("entropy_decode[hybrid_wvc]", "entropy.cu", "entropy_pallas.py:115",
          c_launches["entropy_wvc"], wvc["entropy_wvc"]),
-        ("decorr_post", "decorr.cu", "decorr_pallas.py:163",
-         l_launches["decorr"], lossless["decorr"]),
+        ("decorr_post[packed]", "decorr.cu", "decorr_pallas.py:163",
+         l_launches["decorr"], lossless["decorr_packed"]),
+        ("decorr_post", "decorr.cu", "decorr_pallas.py:163", 0,
+         lossless["decorr"]),
         ("decorr_post[wvc]", "decorr.cu", "decorr_pallas.py:163",
          c_launches["decorr_wvc"], wvc["decorr_wvc"]),
         ("decorr_post[generic]", "decorr.cu", "decorr_pallas.py:163",
          l_launches.get("decorr:generic", 0), lossless["decorr_generic"]),
-        ("decorr_post[mixed_chains]", "decorr.cu", "decorr_pallas.py:163",
-         m_launches["decorr"], mixed["decorr"]),
+        ("decorr_post[packed, mixed_chains]", "decorr.cu",
+         "decorr_pallas.py:163", m_launches["decorr"],
+         mixed["decorr_packed"]),
+        ("decorr_post[mixed_chains]", "decorr.cu", "decorr_pallas.py:163", 0,
+         mixed["decorr"]),
+        ("decorr_post[packed, hybrid]", "decorr.cu", "decorr_pallas.py:163",
+         h_launches["decorr"], hybrid["decorr_packed"]),
         ("wvx_inject", "wvx.cu", "post.py:145", x_launches["wvx"],
          wvx["wvx"]),
         ("wvc_corrections", "wvc.cu", "entropy.py:352", c_launches["wvc"],

@@ -25,15 +25,16 @@ from wvpk_torch.engine.staging import bucket_tensors, group_blocks
 from wvpk_torch.ops.dsd import dsd_fast_decode_bytes, dsd_high_decode_bytes
 from wvpk_torch.ops.dsd_cuda import dsd_fast_decode_cuda, \
     dsd_high_decode_cuda, int64_lanes
-from wvpk_torch.ops.decorr import decorr_post, decorr_post_wvc
+from wvpk_torch.ops.decorr import Pack, decorr_post, decorr_post_wvc
 from wvpk_torch.ops.decorr_cuda import CHAINS, decorr_post_cuda, \
     decorr_post_wvc_cuda
-from wvpk_torch.ops.decorr_select import decorr_post_any, \
-    decorr_post_wvc_any
+from wvpk_torch.ops.decorr_select import decorr_packed_any, \
+    decorr_post_any, decorr_post_wvc_any
 from wvpk_torch.ops.entropy import entropy_decode, wvc_corrections
 from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda, \
     entropy_decode_wvc_cuda
-from wvpk_torch.ops.post import wvx_inject
+from wvpk_torch.ops.pack import pack_samples
+from wvpk_torch.ops.post import fixup, mask_muted, wvx_inject
 from wvpk_torch.ops.wvc_cuda import wvc_corrections_cuda
 from wvpk_torch.ops.wvx_cuda import int64_lanes as wvx_int64_lanes
 from wvpk_torch.ops.wvx_cuda import wvx_inject_cuda
@@ -389,6 +390,195 @@ def test_decorr_mixed_bucket_segments_match_plain(cuda, mono):
     want = decorr_post_wvc_any(on_cpu[0], c_cpu, *on_cpu[1:], mono=mono)
     for w, g in zip(want, got):
         assert torch.equal(w, g.cpu())
+
+
+def _packed_lanes(seed, T, L, mono, bps, hybrid, chain=None):
+    """_decorr_inputs (or _chain_lanes on `chain`) for the packed store:
+    sample counts 0, 1, 37 and T on the first lanes, the rest between T / 2
+    and T; a tenth of the lanes broke, shifts 0-5 (0-2 lossless), every
+    lane storing bps - 1 bytes. The random chains take the samples past
+    every stored width, so a hybrid lane clips."""
+    arrays = (_chain_lanes(seed, T, L, chain, mono) if chain is not None
+              else list(_decorr_inputs(seed, T, L, mono)))
+    arrays[8][:4] = (0, 1, 37, T)
+    rng = np.random.default_rng(seed + 1)
+    broke = rng.random(L) < 0.1
+    shift = rng.integers(0, 6 if hybrid else 3, L).astype(np.int32)
+    bs = np.full(L, bps - 1, np.int32)
+    return arrays, broke, shift, bs
+
+
+PACKED = [(bps, mono, hybrid) for bps in (1, 2, 3) for mono in (False, True)
+          for hybrid in (False, True)]
+
+
+# steps a lane of the packed-store tests: 200 (a ragged last tile), or
+# a count off every multiple of 8 that T C bps allows (16-, 8- and 4-byte
+# aligned rows)
+RAGGED_STEPS = {(False, 1): 202, (False, 2): 203, (False, 3): 202,
+                (True, 1): 204, (True, 2): 202, (True, 3): 204}
+
+
+@pytest.mark.parametrize("steps", ["200", "ragged"])
+@pytest.mark.parametrize("kernel", ["generic", "chain"])
+@pytest.mark.parametrize("bps,mono,hybrid", PACKED,
+                         ids=[f"bps{b}-{'mono' if m else 'stereo'}-"
+                              f"{'hybrid' if h else 'lossless'}"
+                              for b, m, h in PACKED])
+def test_decorr_packed_store_matches_plain_chain(cuda, bps, mono, hybrid,
+                                                 kernel, steps):
+    """The kernels' packed store against the plain chain on the same
+    decorrelation output (the unpacked store's): pack_samples(fixup(
+    mask_muted(...))), byte for byte over the whole (L, W) payload, pad
+    past each lane's sample count and muted rows included; 45 lanes, 200
+    steps (a ragged last tile) or RAGGED_STEPS, lanes muted by `broke` and
+    by the mute
+    limit, sample counts 0, 1 and 37; the generic kernel on random chains
+    and the `default` chain's kernel; CRC and first_bad as the unpacked
+    store's."""
+    chain = None
+    kw = {}
+    if kernel == "chain":
+        chain = [c for n, m, c in CHAINS
+                 if m == mono and n.startswith("default")][0]
+        kw["static_terms"] = chain
+    T = 200 if steps == "200" else RAGGED_STEPS[mono, bps]
+    arrays, broke, shift, bs = _packed_lanes(50 + bps, T, 45, mono, bps,
+                                             hybrid, chain)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    bs = torch.from_numpy(bs).to(cuda)
+    pack = Pack(*(torch.from_numpy(a).to(cuda) for a in (broke, shift)),
+                bps, hybrid)
+    out, crc, first_bad = decorr_post_cuda(*args, mono=mono, **kw)
+    masked, mute = mask_muted(out, args[8], pack.broke, first_bad)
+    want = pack_samples(fixup(masked, pack.shift, bs, None,
+                              None, is_float=False, int32_expand=False,
+                              hybrid=hybrid), bps=bps)
+    before = decorr_post_cuda.launches
+    got = decorr_post_cuda(*args, mono=mono, pack=pack, **kw)
+    torch.cuda.synchronize()
+    assert decorr_post_cuda.launches == before + 1
+    assert torch.equal(got[0], want)
+    assert torch.equal(got[1], crc) and torch.equal(got[2], first_bad)
+    n_muted = int(mute.sum())
+    assert 0 < n_muted < 45 and (first_bad < args[8]).any() \
+        and bool(pack.broke.any())
+    if hybrid:      # the clip engaged
+        unclipped = fixup(masked, pack.shift, bs, None, None,
+                          is_float=False, int32_expand=False, hybrid=False)
+        assert not torch.equal(pack_samples(unclipped, bps=bps), want)
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
+def test_decorr_packed_mixed_bucket_on_side_streams(cuda, mono):
+    """A mixed-chain bucket's packed store: each table chain's run and the
+    generic kernel's two runs (a chain outside the table, a mixed tail) on
+    side streams, through decorr_packed_any, equal to the plain chain on
+    the CPU (decorr.decorr_post_packed)."""
+    T, bps = 150, 2
+    runs = [c for _n, m, c in CHAINS if m == mono] + [(3, 17, 2)]
+    parts = [_chain_lanes(60 + k, T, 20 + k, c, mono)
+             for k, c in enumerate(runs)]
+    parts.append(list(_decorr_inputs(69, T, 25, mono)))
+    arrays = [np.concatenate([p[i] for p in parts], axis=1 if i == 0 else 0)
+              for i in range(len(parts[0]))]
+    segs, pos = [], 0
+    for c, p in zip(runs + [None], parts):
+        n = p[0].shape[1]
+        segs.append((c, pos, pos + n, 16 if c is None else len(c)))
+        pos += n
+    rng = np.random.default_rng(70)
+    broke = rng.random(pos) < 0.05
+    shift = rng.integers(0, 3, pos).astype(np.int32)
+    arrays += [broke, shift]
+    on_cpu = [torch.from_numpy(a) for a in arrays]
+    on_card = [a.to(cuda) for a in on_cpu]
+    kw = dict(mono=mono, hybrid=False, bps=bps)
+    got = decorr_packed_any(*on_card, chain_segments=tuple(segs), **kw)
+    want = decorr_packed_any(*on_cpu, **kw)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g.cpu())
+
+
+def _packed_corpus():
+    from test_torch_packed_store import CORPUS, DELIVERED, _states
+
+    return CORPUS, DELIVERED, _states
+
+
+def _cpu_delivery(b):
+    """The chain the bucket's payload took before the packed store, on the
+    CPU: decode_tensors' samples through fused.deliver's pack_samples."""
+    from wvpk_torch.engine import pipeline
+    from wvpk_torch.engine.fused import deliver
+
+    t = bucket_tensors(b, torch.device("cpu"))
+    out, crc, mute, crc_x, crc_wvc = pipeline.decode_tensors(b, t)
+    return deliver(out, crc, mute, pipeline.delivery_bps(b), crc_x=crc_x,
+                   crc_wvc=crc_wvc)
+
+
+@pytest.mark.parametrize("name", sorted(_packed_corpus()[0]))
+def test_packed_delivery_on_the_card_equals_the_cpu(cuda, name):
+    """Each corpus of tests/test_torch_packed_store.py (8-, 16- and 24-bit,
+    mono and stereo, lossless and hybrid with the clip engaged, damaged
+    lanes that mute, and the float, int32, wvx and wvc buckets that keep
+    the unpacked store) delivered on the card, unsharded and as the shards of a mesh
+    that repeats the card: every payload word and CRC/mute row equal to
+    the CPU's chain before the packed store. A bucket on the packed route
+    ran the packed store once a shard, the others never."""
+    from wvpk_torch.engine import pipeline
+    from wvpk_torch.ops import decorr_cuda
+    from wvpk_torch.parallel.mesh import launch_sharded_bucket, make_mesh
+
+    _c, _d, states_of = _packed_corpus()
+    stores = []
+
+    def spy(*a, pack=None, **kw):
+        stores.append(pack is not None)
+        return launch(*a, pack=pack, **kw)
+
+    launch = decorr_cuda._launch
+    mp = pytest.MonkeyPatch()
+    mp.setattr(decorr_cuda, "_launch", spy)
+    try:
+        for b in group_blocks(states_of(name)):
+            want = _cpu_delivery(b)
+            packed = pipeline.packed_route(b) is not None
+            for n in (1, 2, 3):
+                mesh = make_mesh(devices=[cuda] * n)
+                stores.clear()
+                shards = launch_sharded_bucket(b, mesh)
+                payload = torch.cat([lb.payload for lb in shards],
+                                    dim=1 if shards[0].bps is None else 0)
+                crcmute = torch.cat([lb.crcmute for lb in shards], dim=1)
+                assert torch.equal(want[0], payload.cpu()), (name, mesh)
+                assert torch.equal(want[1], crcmute.cpu()), (name, mesh)
+                assert stores == [packed] * len(shards), (name, stores)
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("ch", [0, 3])
+def test_packed_store_decode_states_on_the_card(cuda, ch):
+    """decode_states of every corpus together on the card, in one fetch
+    and in chunks of 3 blocks, equal to the CPU's blocks; the decorrelation
+    wrapper counts a launch for each packed bucket, and its chain
+    kernels' launches."""
+    from wvpk_torch.config import set_options
+
+    corpus, names, states_of = _packed_corpus()
+    states = [st for n in sorted(corpus) for st in states_of(n)]
+    want = decode_states(states, device="cpu")
+    set_options(delivery_chunk_blocks=ch)
+    try:
+        before = decorr_post_cuda.launches
+        got = decode_states(states, device=cuda)
+    finally:
+        set_options(delivery_chunk_blocks=0)
+    assert decorr_post_cuda.launches > before
+    for w, g in zip(want, got):
+        _same(w, g)
 
 
 def wvx_inputs(seed, T, L, C):

@@ -55,9 +55,22 @@
 //   a mixed bucket go on side streams, so they share the card: measured
 //   against the runs in sequence and against one launch whose blocks
 //   switch on their run's chain (PERF.md, Findings).
-// Samples in (T, L, C) layout make a warp's stores at one sample index
-// contiguous. Past a lane's sample count the output is zero; the caller
-// masks muted lanes.
+// - The packed store (PACKED, never with WVC): for a bucket whose payload
+//   is delivered as packed PCM, the kernel writes that payload itself, the
+//   (L, W) words of little-endian bytes ops/pack.py::pack_samples makes,
+//   with what ops/post.py does between them folded into the store: the
+//   fixup's integer arm (v << shift, mod 32) and, for a hybrid lane, its
+//   clip to the stored width; the +128 of 8-bit PCM; the pad past the
+//   lane's sample count (0x80 bytes at 1 byte a sample, else zeros); and
+//   mask_muted, a muted lane's whole row rewritten as pad at its end. A
+//   thread keeps the 8 samples of a step group in registers, packs them
+//   and stores the group's words to its lane's row (16-byte stores where
+//   the row is aligned to them); the warp writes the rows' pad past their
+//   samples together. Its plain version is
+//   ops/decorr.py::decorr_post_packed.
+// Otherwise samples in (T, L, C) layout make a warp's stores at one
+// sample index contiguous. Past a lane's sample count the output is zero;
+// the caller masks muted lanes.
 
 #include <cstdint>
 
@@ -77,7 +90,10 @@ struct Args {
   const int *res, *corr, *terms, *deltas, *wa0, *wb0, *hist_a, *hist_b,
       *num_terms, *nsamples, *joint, *mute_thr;
   int *out, *crc_out, *crc_wvc_out, *first_bad;
-  int L, T;
+  // the packed store's: per lane the entropy decode's EOF flag and the
+  // fixup's shift; bytes a sample (1-3, the stored width); the hybrid clip
+  const int *broke, *shift;
+  int L, T, bps, hybrid;
 };
 
 __device__ __forceinline__ int cabs32(int v) {
@@ -107,9 +123,11 @@ __device__ __forceinline__ void crc_step(uint32_t& crc, int out_l,
              : crc * 9u + (unsigned)out_l * 3u + (unsigned)out_r;
 }
 
-// One sample through the chain, the post step and the CRCs.
-template <bool MONO, bool WVC, class State>
+// One sample through the chain, the post step and the CRCs; stored to
+// the (T, L, C) output, or, PACKED, kept in `pv` for the group's pack.
+template <bool MONO, bool WVC, bool PACKED, class State>
 struct Lane {
+  static constexpr int C = MONO ? 1 : 2;
   State& s;
   const Stage<MONO, WVC>& st;
   int* o;
@@ -118,6 +136,7 @@ struct Lane {
   int thr, ns_lane;
   uint32_t crc, crc_l;
   int fb, fb_l;
+  int pv[8 * C];
 
   __device__ __forceinline__ void step(int t, int m) {
     const int* v = st.at(t);
@@ -135,9 +154,20 @@ struct Lane {
     }
     if (post<MONO>(va, vb, jt, thr, out_l, out_r) && fb == ns_lane) fb = t;
     if (t < fb) crc_step<MONO>(crc, out_l, out_r);
-    int* op = o + (size_t)t * row;
-    op[0] = out_l;
-    if (!MONO) op[1] = out_r;
+    if (PACKED) {
+      pv[m * C] = out_l;
+      if (!MONO) pv[m * C + 1] = out_r;
+    } else {
+      int* op = o + (size_t)t * row;
+      op[0] = out_l;
+      if (!MONO) op[1] = out_r;
+    }
+  }
+
+  // Step slot m of the group lies past the lane's sample count.
+  __device__ __forceinline__ void pad(int m) {
+    pv[m * C] = 0;
+    if (!MONO) pv[m * C + 1] = 0;
   }
 };
 
@@ -154,9 +184,9 @@ __device__ __forceinline__ void scan(const Args& a, int lane, int* ring,
                             a.res + (size_t)lane * C,
                             WVC ? a.corr + (size_t)lane * C : nullptr, row,
                             ns};
-  Lane<MONO, WVC, State> ln{s,  st, a.out + (size_t)lane * C, row,
-                            a.joint[lane] != 0, a.mute_thr[lane], ns_lane,
-                            0xFFFFFFFFu, 0xFFFFFFFFu, ns_lane, ns_lane};
+  Lane<MONO, WVC, false, State> ln{
+      s,      st,     a.out + (size_t)lane * C, row, a.joint[lane] != 0,
+      a.mute_thr[lane], ns_lane, 0xFFFFFFFFu, 0xFFFFFFFFu, ns_lane, ns_lane};
   const int ntiles = (ns + TILE - 1) / TILE;
   if (ntiles > 0) st.fetch(0);
   for (int k = 0; k < ntiles; ++k) {
@@ -187,47 +217,260 @@ __device__ __forceinline__ void scan(const Args& a, int lane, int* ring,
   a.first_bad[lane] = ln.fb;
 }
 
-template <bool MONO, bool WVC, int... TV>
-__global__ void __launch_bounds__(THREADS)
-decorr_chain(Args a, int lane0, int lane1) {
-  __shared__ __align__(16) int ring[ring_ints<MONO, WVC>()];
-  const int lane = lane0 + blockIdx.x * THREADS + threadIdx.x;
-  if (lane >= lane1) return;
-  ChainState<MONO, TV...> s;
-  s.load(a, lane);
-  scan<MONO, WVC>(a, lane, ring, s);
+// -- the packed store -------------------------------------------------------
+
+// A lane's fixup (ops/post.py::fixup, integer arm): with CLIP (a hybrid
+// bucket) the clip to the stored width, bps bytes (UnpackUtils.cs:
+// 1350-1393), then the shift, mod 32.
+struct Fix {
+  int sh, lo, hi;
+
+  __device__ __forceinline__ Fix(int shift, int bps) : sh(shift & 31) {
+    hi = (bps == 1 ? 127 : bps == 2 ? 32767 : 8388607) >> sh;
+    lo = (bps == 1 ? -128 : bps == 2 ? -32768 : -8388608) >> sh;
+  }
+
+  template <bool CLIP>
+  __device__ __forceinline__ unsigned apply(int v) const {
+    if (CLIP) v = v < lo ? lo : v > hi ? hi : v;
+    return (unsigned)v << sh;
+  }
+};
+
+// Words [0, n) of w at g, n <= N; 16- or 8-byte stores where g is aligned
+// to them and all N are stored.
+template <int N>
+__device__ __forceinline__ void store_words(unsigned* g, const unsigned* w,
+                                            int n) {
+  const uintptr_t at = (uintptr_t)g;
+  if (n == N && N % 4 == 0 && at % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      ((uint4*)g)[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2],
+                                  w[4 * i + 3]);
+  } else if (n == N && N % 2 == 0 && at % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      ((uint2*)g)[i] = make_uint2(w[2 * i], w[2 * i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (i < n) g[i] = w[i];
+  }
 }
 
-template <bool MONO, bool WVC>
+// A group's 8 C samples, fixed up, as the 2 C BPS words of their
+// little-endian bytes (ops/pack.py::pack_samples), the first n of them
+// stored at g.
+template <bool MONO, int BPS, bool CLIP>
+__device__ __forceinline__ void pack_store(const int* v, const Fix& fx,
+                                           unsigned* g, int n) {
+  constexpr int C = MONO ? 1 : 2;
+  constexpr int N = 2 * C * BPS;
+  unsigned w[N];
+  if (BPS == 2) {
+#pragma unroll
+    for (int j = 0; j < 4 * C; ++j)
+      w[j] = (fx.template apply<CLIP>(v[2 * j]) & 0xFFFFu) |
+             (fx.template apply<CLIP>(v[2 * j + 1]) << 16);
+  } else if (BPS == 1) {
+#pragma unroll
+    for (int j = 0; j < 2 * C; ++j) {
+      unsigned x = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x |= ((fx.template apply<CLIP>(v[4 * j + i]) + 128u) & 0xFFu)
+             << (8 * i);
+      w[j] = x;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2 * C; ++j) {
+      const unsigned v0 = fx.template apply<CLIP>(v[4 * j]),
+                     v1 = fx.template apply<CLIP>(v[4 * j + 1]),
+                     v2 = fx.template apply<CLIP>(v[4 * j + 2]),
+                     v3 = fx.template apply<CLIP>(v[4 * j + 3]);
+      w[3 * j] = (v0 & 0xFFFFFFu) | (v1 << 24);
+      w[3 * j + 1] = ((v1 >> 8) & 0xFFFFu) | (v2 << 16);
+      w[3 * j + 2] = ((v2 >> 16) & 0xFFu) | (v3 << 8);
+    }
+  }
+  store_words<N>(g, w, n);
+}
+
+// pack_store for the launch's bytes a sample and clip, both uniform
+// across the launch, so each group takes one branch.
+template <bool MONO>
+__device__ __forceinline__ void pack_group(const int* v, const Fix& fx,
+                                           int bps, bool clip, unsigned* g,
+                                           int n) {
+  if (clip) {
+    if (bps == 2)
+      pack_store<MONO, 2, true>(v, fx, g, n);
+    else if (bps == 1)
+      pack_store<MONO, 1, true>(v, fx, g, n);
+    else
+      pack_store<MONO, 3, true>(v, fx, g, n);
+  } else {
+    if (bps == 2)
+      pack_store<MONO, 2, false>(v, fx, g, n);
+    else if (bps == 1)
+      pack_store<MONO, 1, false>(v, fx, g, n);
+    else
+      pack_store<MONO, 3, false>(v, fx, g, n);
+  }
+}
+
+// Words [from, to) of g set to `pad` by the warp, its threads on
+// neighbouring words (16-byte stores between the ends' 16-byte bounds).
+__device__ __forceinline__ void fill_words(unsigned* g, size_t from,
+                                           size_t to, unsigned pad) {
+  unsigned* p = g + from;
+  unsigned* e = g + to;
+  unsigned* a16 = (unsigned*)(((uintptr_t)p + 15) & ~(uintptr_t)15);
+  if (a16 > e) a16 = e;
+  uint4* v = (uint4*)a16;
+  uint4* ve = (uint4*)((uintptr_t)e & ~(uintptr_t)15);
+  if (ve < v) ve = v;
+  for (unsigned* q = p + threadIdx.x; q < a16; q += STAGE_LANES) *q = pad;
+  const uint4 pad4 = make_uint4(pad, pad, pad, pad);
+  for (uint4* q = v + threadIdx.x; q < ve; q += STAGE_LANES) *q = pad4;
+  for (unsigned* q = (unsigned*)ve + threadIdx.x; q < e; q += STAGE_LANES)
+    *q = pad;
+}
+
+// The packed scan of a block's lanes [base, base + 32) clipped to lane1.
+// The rows are the payload's (L, W) words, W = T C bps / 4. Each thread
+// packs its lane's 8-step groups and stores them to its row (2 C bps
+// words, in 16-byte stores where the row allows; a warp's store lands on
+// 32 rows, but it is one or two stores a group, spread through the scan,
+// where a warp writing shared-memory tiles row by row stalls on its bursts
+// of stores: PERF.md, Findings); the groups past the lane's sample
+// count in its last tile are pad. Then the warp writes the pad of each row
+// up to T (0x80 bytes at 1 byte a sample, else zeros), and rewrites the
+// row of a muted lane (`broke`, or a sample out of range before its
+// sample count) as pad. The CRC and first_bad as the unpacked scan's.
+template <bool MONO, class State>
+__device__ __forceinline__ void scan_packed(const Args& a, int base,
+                                            int lane1, bool active,
+                                            int* ring, State& s) {
+  constexpr int C = MONO ? 1 : 2;
+  const int lane = base + (int)threadIdx.x;
+  const int ns_lane = active ? a.nsamples[lane] : 0;
+  const int ns = max(min(ns_lane, a.T), 0);
+  const size_t row = (size_t)a.L * C;
+  Stage<MONO, false> st{ring + threadIdx.x * C,
+                        a.res + (size_t)(active ? lane : 0) * C, nullptr,
+                        row, ns};
+  Lane<MONO, false, true, State> ln{
+      s, st, nullptr, row, active && a.joint[lane] != 0,
+      active ? a.mute_thr[lane] : 0, ns_lane, 0xFFFFFFFFu, 0xFFFFFFFFu,
+      ns_lane, ns_lane};
+  const int bps = a.bps;
+  const Fix fx(active ? a.shift[lane] : 0, bps);
+  const bool clip = a.hybrid != 0;
+  const int gw = 8 * C * bps / 4;  // words of a group of 8 steps
+  const size_t W = (size_t)a.T * C * bps / 4;
+  unsigned* out = (unsigned*)a.out + (size_t)base * W;
+  unsigned* mine = out + threadIdx.x * W;
+  const int ntiles = (ns + TILE - 1) / TILE;
+  if (ntiles > 0) st.fetch(0);
+  for (int k = 0; k < ntiles; ++k) {
+    st.advance(k, ntiles);
+#pragma unroll 1
+    for (int t8 = k * TILE; t8 < k * TILE + TILE; t8 += 8) {
+      if (t8 + 8 <= ns) {
+#pragma unroll
+        for (int m = 0; m < 8; ++m) ln.step(t8 + m, m);
+      } else {
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          if (t8 + m < ns)
+            ln.step(t8 + m, m);
+          else
+            ln.pad(m);
+        }
+      }
+      // the words of steps below T (T C bps is a multiple of 4)
+      const int n = min(8, a.T - t8) * C * bps / 4;
+      pack_group<MONO>(ln.pv, fx, bps, clip, mine + (size_t)t8 / 8 * gw, n);
+    }
+  }
+  if (active) {
+    a.crc_out[lane] = (int)ln.crc;
+    a.first_bad[lane] = ln.fb;
+  }
+  const unsigned pad = bps == 1 ? 0x80808080u : 0u;
+  // the words each lane's groups wrote
+  const unsigned long long done =
+      (unsigned long long)min(ntiles * TILE, a.T) * C * bps / 4;
+  const int rows = min(STAGE_LANES, lane1 - base);
+  for (int r = 0; r < rows; ++r)
+    fill_words(out + r * W, __shfl_sync(0xFFFFFFFFu, done, r), W, pad);
+  unsigned muted = __ballot_sync(
+      0xFFFFFFFFu, active && (a.broke[lane] != 0 || ln.fb < ns_lane));
+  if (muted) __syncwarp();  // the rows' own stores before their rewrite
+  while (muted) {
+    const int r = __ffs(muted) - 1;
+    muted &= muted - 1;
+    fill_words(out + r * W, 0, W, pad);
+  }
+}
+
+// A block's 32 lanes from lane0 + 32 blockIdx.x, up to lane1, with chain
+// state `s` (its `load` reads a lane's seeds).
+template <bool MONO, bool WVC, bool PACKED, class State>
+__device__ __forceinline__ void run_block(const Args& a, int lane0,
+                                          int lane1, State& s) {
+  static_assert(!(PACKED && WVC), "the packed store has no wvc arm");
+  __shared__ __align__(16) int ring[ring_ints<MONO, WVC>()];
+  const int base = lane0 + blockIdx.x * THREADS;
+  const int lane = base + threadIdx.x;
+  if constexpr (PACKED) {
+    const bool active = lane < lane1;
+    if (active) s.load(a, lane);
+    scan_packed<MONO>(a, base, lane1, active, ring, s);
+  } else {
+    if (lane >= lane1) return;
+    s.load(a, lane);
+    scan<MONO, WVC>(a, lane, ring, s);
+  }
+}
+
+template <bool MONO, bool WVC, bool PACKED, int... TV>
+__global__ void __launch_bounds__(THREADS)
+decorr_chain(Args a, int lane0, int lane1) {
+  ChainState<MONO, TV...> s;
+  run_block<MONO, WVC, PACKED>(a, lane0, lane1, s);
+}
+
+template <bool MONO, bool WVC, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 decorr_generic(Args a, int lane0, int lane1) {
-  __shared__ __align__(16) int ring[ring_ints<MONO, WVC>()];
-  const int lane = lane0 + blockIdx.x * THREADS + threadIdx.x;
-  if (lane >= lane1) return;
   GenericState<MONO> s;
-  s.load(a, lane);
-  scan<MONO, WVC>(a, lane, ring, s);
+  run_block<MONO, WVC, PACKED>(a, lane0, lane1, s);
 }
 
 using Kernel = void (*)(Args, int, int);
 
 // A chain of WVPK_CHAIN_TABLE (decorr_pass.cuh; ops/decorr_cuda.py::CHAINS
 // names the same list) by its id.
-#define WVPK_CHAIN(ID, MONO_, ...)                                     \
-  case ID:                                                             \
-    if constexpr (MONO_ == MONO) return decorr_chain<MONO, WVC, __VA_ARGS__>; \
+#define WVPK_CHAIN(ID, MONO_, ...)                                  \
+  case ID:                                                          \
+    if constexpr (MONO_ == MONO)                                    \
+      return decorr_chain<MONO, WVC, PACKED, __VA_ARGS__>;          \
     break;
 
 // The kernel compiled for chain `id`, else (an id of the other channel
 // count too) the generic one.
-template <bool MONO, bool WVC>
+template <bool MONO, bool WVC, bool PACKED>
 Kernel kernel_for(int id) {
   switch (id) {
     WVPK_CHAIN_TABLE
     default:
       break;
   }
-  return decorr_generic<MONO, WVC>;
+  return decorr_generic<MONO, WVC, PACKED>;
 }
 
 #undef WVPK_CHAIN
@@ -239,9 +482,13 @@ Kernel kernel_for(int id) {
 // num_terms, nsamples, joint, mute_thr (L,) int32; crc, first_bad and,
 // with `wvc`, crc_wvc (L,) int32. Without wvc, crc covers the output; with
 // it, crc the lossy samples and crc_wvc the exact ones, and first_bad is the
-// exact samples'. One launch on `stream` of chain `chain`'s kernel (-1 or
-// an id outside the table: the generic one) on lanes [lo, hi); the other
-// lanes are not written. Returns its CUDA error.
+// exact samples'. With `bps` 1-3 (never with wvc; 0: the (T, L, C) store),
+// out is the packed payload, (L, T C bps / 4) int32 words, T C bps a
+// multiple of 4, and broke and shift (L,) int32 are read (else null):
+// every lane stores bps bytes a sample, and `hybrid` clips to them.
+// One launch on `stream` of chain `chain`'s kernel (-1 or an id outside
+// the table: the generic one) on lanes [lo, hi); the other lanes are not
+// written. Returns its CUDA error.
 extern "C" int wvpk_decorr_post(const void* res, const void* corr,
                                 const void* terms, const void* deltas,
                                 const void* wa0, const void* wb0,
@@ -249,24 +496,33 @@ extern "C" int wvpk_decorr_post(const void* res, const void* corr,
                                 const void* num_terms, const void* nsamples,
                                 const void* joint, const void* mute_thr,
                                 void* out, void* crc, void* crc_wvc,
-                                void* first_bad, int L, int T, int mono,
-                                int wvc, int chain, int lo, int hi,
-                                void* stream) {
-  if (lo < 0 || hi > L || lo >= hi) return (int)cudaErrorInvalidValue;
-  Args a{(const int*)res,      (const int*)corr,
-         (const int*)terms,    (const int*)deltas,
-         (const int*)wa0,      (const int*)wb0,
-         (const int*)hist_a,   (const int*)hist_b,
-         (const int*)num_terms, (const int*)nsamples,
-         (const int*)joint,    (const int*)mute_thr,
-         (int*)out,            (int*)crc,
-         (int*)crc_wvc,        (int*)first_bad,
-         L,                    T};
+                                void* first_bad, const void* broke,
+                                const void* shift, int L, int T, int mono,
+                                int wvc, int bps, int hybrid, int chain,
+                                int lo, int hi, void* stream) {
+  const bool packed = bps != 0;
+  if (lo < 0 || hi > L || lo >= hi ||
+      (packed && (wvc || bps < 0 || bps > 3 ||
+                  (long long)T * (mono ? 1 : 2) * bps % 4 != 0)))
+    return (int)cudaErrorInvalidValue;
+  Args a{(const int*)res,          (const int*)corr,
+         (const int*)terms,        (const int*)deltas,
+         (const int*)wa0,          (const int*)wb0,
+         (const int*)hist_a,       (const int*)hist_b,
+         (const int*)num_terms,    (const int*)nsamples,
+         (const int*)joint,        (const int*)mute_thr,
+         (int*)out,                (int*)crc,
+         (int*)crc_wvc,            (int*)first_bad,
+         (const int*)broke,        (const int*)shift,
+         L,                        T,
+         bps,                      hybrid};
   const Kernel fn =
-      mono ? (wvc ? kernel_for<true, true>(chain)
-                  : kernel_for<true, false>(chain))
-           : (wvc ? kernel_for<false, true>(chain)
-                  : kernel_for<false, false>(chain));
+      mono ? (wvc      ? kernel_for<true, true, false>(chain)
+              : packed ? kernel_for<true, false, true>(chain)
+                       : kernel_for<true, false, false>(chain))
+           : (wvc      ? kernel_for<false, true, false>(chain)
+              : packed ? kernel_for<false, false, true>(chain)
+                       : kernel_for<false, false, false>(chain));
   void* params[] = {&a, &lo, &hi};
   const cudaError_t e = cudaLaunchKernel(
       (const void*)fn, dim3((hi - lo + THREADS - 1) / THREADS), dim3(THREADS),

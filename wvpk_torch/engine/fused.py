@@ -3,7 +3,10 @@
 
 There is no jit: each step runs eagerly on the bucket's device, the CUDA
 kernels on "cuda" and their plain versions on "cpu". Three programs, as
-in wvpk: `fused_decode` for lossless, hybrid and float buckets,
+in wvpk: `fused_decode` for lossless, hybrid and float buckets (given
+`pack_bps`, for an integer bucket delivered packed, the decorrelation
+kernel's store writes the payload with the mute mask, fixup and byte pack
+folded in, and no (T, L, C) samples exist on the card),
 `fused_decode_wvx` for int32+wvx buckets (the injection runs between
 joint/CRC and the final shift, the reference's order,
 UnpackUtils.cs:1271-1314) and `fused_decode_wvc` for hybrid buckets with a
@@ -18,7 +21,8 @@ import numpy as np
 import torch
 
 from .. import consts
-from ..ops.decorr_select import decorr_post_any, decorr_post_wvc_any
+from ..ops.decorr_select import decorr_packed_any, decorr_post_any, \
+    decorr_post_wvc_any
 from ..ops.entropy_select import entropy_decode_any, \
     entropy_decode_wvc_any, wvc_corrections_any
 from ..ops.pack import pack_samples
@@ -32,14 +36,27 @@ def fused_decode(words, nwords_lane, nsamples, med, slow, acc, delta,
                  *, mono: bool, hybrid: bool, hybrid_bitrate: bool,
                  hybrid_balance: bool, is_float: bool, int32_expand: bool,
                  nsteps: int, static_terms: tuple | None = None,
-                 chain_segments: tuple | None = None):
+                 chain_segments: tuple | None = None,
+                 pack_bps: int | None = None):
     """Decode one bucket. Returns (out (T, L, C) int32, crc (L,) int32,
     mute (L,) bool). `static_terms` / `chain_segments` are the bucket's
-    (staging.Bucket): which lanes share a term chain."""
+    (staging.Bucket): which lanes share a term chain. Given `pack_bps`
+    (an integer bucket, not int32-expanded, every lane's bytes_stored
+    pack_bps - 1), `out` is the delivered payload in place of the
+    samples: (L, W) int32 words, as pack_samples(out, bps=pack_bps)."""
     residuals, broke, _ndec = entropy_decode_any(
         words, nwords_lane, med, slow, acc, delta, mono=mono, nsteps=nsteps,
         hybrid=hybrid, hybrid_bitrate=hybrid_bitrate,
         hybrid_balance=hybrid_balance)
+    if pack_bps is not None:
+        if is_float or int32_expand:
+            raise ValueError("fused_decode: a float or int32-expanded "
+                             "bucket has no packed store")
+        return decorr_packed_any(
+            residuals, terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
+            nsamples, joint, mute_limit, broke, shift, mono=mono,
+            hybrid=hybrid, bps=pack_bps,
+            static_terms=static_terms, chain_segments=chain_segments)
     out, crc, mute = decorr_post_any(
         residuals, terms, deltas16, wa, wb, hist_a, hist_b, num_terms,
         nsamples, joint, mute_limit, broke, mono=mono,
@@ -206,8 +223,10 @@ def restore_terms(t: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 
 def deliver(out, crc, mute, pack_bps: int | None, crc_x=None, crc_wvc=None):
-    """The bucket's two results for the host: the PCM payload (packed
-    bytes, or the int32 samples) and a stacked (crc, mute, crc_x) table,
+    """The bucket's two results for the host: the PCM payload (`out`
+    packed here at `pack_bps`; else `out` as it is: the int32 samples, or
+    the payload the decorrelation kernel packed) and a stacked (crc,
+    mute, crc_x) table,
     crc_x -1 where the bucket has no wvx stream, with a 4th row crc_wvc
     for a bucket decoded with its correction streams."""
     payload = out if pack_bps is None else pack_samples(out, bps=pack_bps)

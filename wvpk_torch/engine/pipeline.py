@@ -4,7 +4,9 @@ Per call: parse-side block states -> buckets (host staging) -> per bucket
 one host-to-device blob and its fused program (entropy, decorrelation
 with joint/mute/CRC folded in, wvx injection for int32+wvx buckets, the
 correction scan for hybrid buckets paired with a .wvc, fixup and the byte
-pack), and per DSD profile group its decode (dsd_pipeline.py), all queued
+pack; on a bucket of `packed_route`, the decorrelation kernel writes the
+packed payload itself), and per DSD profile group its decode
+(dsd_pipeline.py), all queued
 on the device -> ONE batched device-to-host copy for every bucket's and
 group's results -> `DecodedBlock`s on the host. The host only
 parses containers and reassembles outputs (reference UnpackUtils.cs:
@@ -15,7 +17,8 @@ staging and launches (`run_decode`); with a mesh (parallel/mesh.py) each
 bucket's and group's lanes are sharded over several devices.
 
 Traced (trace.py), a call is the `decode` span (`#blocks`, `#buckets`,
-`#chunks`) over `staging`, `launch` (enqueue only; `#h2d_bytes`),
+`#chunks`) over `staging`, `launch` (enqueue only; `#h2d_bytes`; `#lanes`,
+every PCM lane launched, and `#packed_lanes`, those on the packed route),
 `transfer` and `finalize`, a chunk at a time; `transfer` holds
 `transfer.enqueue` (`_start_fetch`), then `transfer.wait` (the host
 blocked on the queued work: under a collector the stream, or the event
@@ -84,11 +87,13 @@ def _bucket_bps(b: Bucket) -> int | None:
     return bps if bps in (1, 2, 3) else None
 
 
-def decode_tensors(b: Bucket, t: dict[str, torch.Tensor]):
+def decode_tensors(b: Bucket, t: dict[str, torch.Tensor],
+                   pack_bps: int | None = None):
     """Run a staged bucket's fused program (`t` from bucket_tensors): the
     wvc program for a bucket paired with correction streams, the wvx one
-    for int32+wvx, the plain one otherwise. Returns (out, crc, mute,
-    crc_x or None, crc_wvc or None)."""
+    for int32+wvx, the plain one otherwise, with `pack_bps` (a bucket of
+    `packed_route`) on its packed route. Returns (out, crc, mute, crc_x or
+    None, crc_wvc or None); `out` is the packed payload given pack_bps."""
     prof = b.profile
     base = {k: t[k] for k in DEVICE_FIELDS}
     hyb = dict(mono=prof.mono, hybrid_bitrate=prof.hybrid_bitrate,
@@ -108,7 +113,7 @@ def decode_tensors(b: Bucket, t: dict[str, torch.Tensor]):
         return out, crc, mute, crc_x, None
     out, crc, mute = fused_decode(
         **base, hybrid=prof.hybrid, is_float=prof.is_float,
-        int32_expand=prof.is_int32, **hyb)
+        int32_expand=prof.is_int32, pack_bps=pack_bps, **hyb)
     return out, crc, mute, None, None
 
 
@@ -118,12 +123,28 @@ def delivery_bps(b: Bucket) -> int | None:
     return _bucket_bps(b) if get_options().packed_delivery else None
 
 
+def packed_route(b: Bucket) -> int | None:
+    """The width at which the decorrelation kernel writes a bucket's
+    delivered payload itself (fused_decode's `pack_bps`): delivery_bps for
+    a bucket of the plain program (no wvx or wvc stream) that is integer
+    and not int32-expanded; None where the samples go through fixup and
+    pack_samples (or are delivered as int32)."""
+    prof = b.profile
+    if prof.has_wvc or prof.has_wvx or prof.is_float or prof.is_int32:
+        return None
+    return delivery_bps(b)
+
+
 def deliver_bucket(b: Bucket, t: dict[str, torch.Tensor]):
     """A staged bucket's fused program and its two results for the host:
-    (payload, crcmute) as fused.deliver gives them."""
-    out, crc, mute, crc_x, crc_wvc = decode_tensors(b, t)
-    return deliver(out, crc, mute, delivery_bps(b), crc_x=crc_x,
-                   crc_wvc=crc_wvc)
+    (payload, crcmute) as fused.deliver gives them. Counts its lanes in
+    the open span (`#lanes`, `#packed_lanes`)."""
+    packed = packed_route(b)
+    trace.count("lanes", len(b.states))
+    trace.count("packed_lanes", len(b.states) if packed else 0)
+    out, crc, mute, crc_x, crc_wvc = decode_tensors(b, t, pack_bps=packed)
+    return deliver(out, crc, mute, None if packed else delivery_bps(b),
+                   crc_x=crc_x, crc_wvc=crc_wvc)
 
 
 def _unpack_lane(raw_words: np.ndarray, n_vals: int, bps: int,

@@ -12,17 +12,20 @@ terms -1, -2, -3. Terms may differ lane to lane; each pass computes only
 the term classes its lanes use.
 
 `decorr_post` (decorr_decode, then the joint/mute/CRC step) is the plain
-version of the CUDA kernel in csrc/decorr.cu, and `decorr_post_wvc` of its
-wvc arm.
+version of the CUDA kernel in csrc/decorr.cu, `decorr_post_wvc` of its
+wvc arm and `decorr_post_packed` of its packed store.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from .. import consts
 from .bitio import wrap32
-from .post import joint_crc
+from .pack import pack_samples
+from .post import fixup, joint_crc, mask_muted
 
 I64 = torch.int64
 
@@ -214,3 +217,34 @@ def decorr_post_wvc(residuals, corr, terms, deltas, w0_a, w0_b, hist0_a,
                                         mono=mono)
     _, crc, _ = joint_crc(dec, nsamples, joint, mute_limit, mono=mono)
     return out, crc, crc_wvc, first_bad
+
+
+class Pack(NamedTuple):
+    """What the packed store reads beside the decorrelation's inputs: the
+    entropy decode's EOF flags `broke` (L,) bool, the fixup's `shift`
+    (L,), the payload's bytes a sample `bps` (1-3, every lane's stored
+    width: bytes_stored bps - 1) and `hybrid` (the fixup's clip to that
+    width)."""
+    broke: torch.Tensor
+    shift: torch.Tensor
+    bps: int
+    hybrid: bool
+
+
+def decorr_post_packed(residuals, terms, deltas, w0_a, w0_b, hist0_a,
+                       hist0_b, num_terms, nsamples, joint, mute_limit, *,
+                       mono: bool, pack: Pack):
+    """Plain version of the CUDA decorr kernel's packed store: decorr_post,
+    then mask_muted, fixup's integer arm and pack_samples, the chain a
+    bucket's payload takes without it.
+
+    Returns (payload (L, T C bps / 4) int32 words of packed little-endian
+    PCM, crc (L,) int32, first_bad (L,) int32)."""
+    out, crc, first_bad = decorr_post(
+        residuals, terms, deltas, w0_a, w0_b, hist0_a, hist0_b, num_terms,
+        nsamples, joint, mute_limit, mono=mono)
+    out, _mute = mask_muted(out, nsamples, pack.broke, first_bad)
+    bytes_stored = torch.full_like(pack.shift, pack.bps - 1)
+    out = fixup(out, pack.shift, bytes_stored, None, None,
+                is_float=False, int32_expand=False, hybrid=pack.hybrid)
+    return pack_samples(out, bps=pack.bps), crc, first_bad

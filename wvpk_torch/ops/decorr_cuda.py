@@ -3,7 +3,9 @@
 The kernels replace wvpk/ops/decorr_pallas.py::_decorr_kernel with
 fold_post; their plain version is ops/decorr.py::decorr_post, with the
 same arguments and results. `decorr_post_wvc_cuda` is their wvc arm, whose
-plain version is ops/decorr.py::decorr_post_wvc.
+plain version is ops/decorr.py::decorr_post_wvc. Given `pack`,
+`decorr_post_cuda` runs their packed store, which writes the bucket's
+delivered payload itself (plain version ops/decorr.py::decorr_post_packed).
 
 csrc/decorr.cu compiles one kernel for each chain of CHAINS (its terms
 fixed, so its weights and history rings live in registers) and a generic
@@ -98,7 +100,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("decorr")
     fn = lib.wvpk_decorr_post
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     return lib
 
@@ -116,7 +118,8 @@ def _as_i32(name, t, shape, device, kernel="decorr"):
 
 
 def _launch(residuals, corr, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
-            num_terms, nsamples, joint, mute_limit, *, mono: bool, runs):
+            num_terms, nsamples, joint, mute_limit, *, mono: bool, runs,
+            pack=None):
     if not residuals.is_cuda:
         raise ValueError("decorr_post_cuda takes CUDA tensors")
     T, L, C = residuals.shape
@@ -154,14 +157,26 @@ def _launch(residuals, corr, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
             # limits past int32 can never fire: |cabs| <= 2^31 - 1
             _as_i32("mute_limit", torch.clamp(mute_limit, max=_INT32_MAX),
                     (L,), dev)]
-    out = torch.empty((T, L, C), dtype=I32, device=dev)
+    bps, packed = 0, [None] * 2
+    if pack is not None:
+        bps = pack.bps
+        if wvc or bps not in (1, 2, 3) or T * C * bps % 4:
+            raise ValueError(
+                f"decorr kernel: no packed store at {bps} bytes a sample "
+                f"for {T} x {C} values{' with corrections' if wvc else ''}")
+        packed = [_as_i32(name, x, (L,), dev) for name, x in (
+            ("broke", pack.broke), ("shift", pack.shift))]
+        out = torch.empty((L, T * C * bps // 4), dtype=I32, device=dev)
+    else:
+        out = torch.empty((T, L, C), dtype=I32, device=dev)
     crc = torch.empty(L, dtype=I32, device=dev)
     crc_wvc = torch.empty(L, dtype=I32, device=dev) if wvc else None
     first_bad = torch.empty(L, dtype=I32, device=dev)
     ptrs = (residuals.data_ptr(), corr.data_ptr() if wvc else None,
             *(a.data_ptr() for a in args), out.data_ptr(), crc.data_ptr(),
-            crc_wvc.data_ptr() if wvc else None, first_bad.data_ptr(), L, T,
-            int(mono), int(wvc))
+            crc_wvc.data_ptr() if wvc else None, first_bad.data_ptr(),
+            *(None if a is None else a.data_ptr() for a in packed), L, T,
+            int(mono), int(wvc), bps, int(pack is not None and pack.hybrid))
     # fork every side stream before the first launch, or a side stream
     # would wait for the runs launched before it
     main = torch.cuda.current_stream(dev)
@@ -188,13 +203,17 @@ def _count(fn, runs, mono):
 
 def decorr_post_cuda(residuals, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
                      num_terms, nsamples, joint, mute_limit, *, mono: bool,
-                     static_terms=None, chain_segments=None):
+                     static_terms=None, chain_segments=None, pack=None):
     """Same contract as ops/decorr.py::decorr_post, on CUDA tensors;
-    `static_terms` / `chain_segments` choose the kernels (lane_runs)."""
+    `static_terms` / `chain_segments` choose the kernels (lane_runs).
+    Given `pack` (ops/decorr.py::Pack), the kernels' packed store: the
+    contract of ops/decorr.py::decorr_post_packed, the payload in place of
+    the samples."""
     runs = lane_runs(residuals.shape[1], mono, static_terms, chain_segments)
     out, crc, _, first_bad = _launch(
         residuals, None, terms, deltas, w0_a, w0_b, hist0_a, hist0_b,
-        num_terms, nsamples, joint, mute_limit, mono=mono, runs=runs)
+        num_terms, nsamples, joint, mute_limit, mono=mono, runs=runs,
+        pack=pack)
     _count(decorr_post_cuda, runs, mono)
     return out, crc, first_bad
 

@@ -67,10 +67,16 @@ def joint_crc(decorr_out, nsamples, joint, mute_limit, *, mono: bool):
             first_bad.to(torch.int32))
 
 
+def muted(nsamples, broke, first_bad):
+    """The lanes the decoder conceals: those that hit EOF (`broke`) or a
+    sample past their mute limit before their sample count."""
+    return broke | (first_bad < nsamples)
+
+
 def mask_muted(out, nsamples, broke, first_bad):
-    """The decoder's concealment: a lane that hit EOF (`broke`) or a
-    sample past its mute limit outputs zeros. Returns (out, mute)."""
-    mute = broke | (first_bad < nsamples)
+    """The decoder's concealment: a muted lane (`muted`) outputs zeros.
+    Returns (out, mute)."""
+    mute = muted(nsamples, broke, first_bad)
     return torch.where(mute[None, :, None], 0, out), mute
 
 

@@ -10,6 +10,7 @@
     python3 wvpk_torch/tools/kernel_ab.py --wvx OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --sass OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --e2e OLD_ROOT NEW_ROOT
+    python3 wvpk_torch/tools/kernel_ab.py --store OLD_ROOT NEW_ROOT
 
 Two checkouts, in turns old, new, new, old. Each turn is a process of its
 own with that root's `wvpk_torch` and `chip_smoke.py` first on the path
@@ -108,6 +109,18 @@ first 16 lossless files with the DSD corpus). Each gets one warm-up and
 pipeline stages as `trace.collect` gives them (staging, launch, transfer,
 finalize: host clock, unsynchronised), and a digest of the samples,
 which must agree across the turns.
+
+`--store OLD_ROOT NEW_ROOT` runs the same turns on one bucket at the
+library cell's shape (PERF.md section 4: 3,850 stereo lanes of 22,050
+samples, capacity 32,768 steps, the default chain, lossless 16-bit;
+STORE_BLOCKS encoded blocks repeated): the root's `deliver_bucket` (the
+entropy kernel, the decorrelation kernel and whatever the root runs to
+make the delivered payload) and its entropy kernel alone, `--reps`
+launches each with CUDA events, their difference the store's time; the
+peak device memory of one deliver_bucket over what was allocated before
+it; one deliver_bucket under torch.profiler, its device time by kernel
+and its ops grouped by input shape; a digest of the payload and CRC/mute
+table, which must agree across the turns.
 
 Needs one CUDA device; imports no jax.
 """
@@ -263,6 +276,118 @@ def ab(old: str, new: str, reps: int, calls: int) -> int:
                    for s in stage_names}
             for side, ts in sides.items()}}))
     return 0 if same and not any(t["bad_blocks"] for t in turns) else 1
+
+
+STORE_BLOCKS = 64       # distinct blocks of the --store bucket
+STORE_LANES = 3850      # its lanes: a library call's blocks
+
+
+def _library_bucket():
+    """The --store bucket: STORE_BLOCKS 22,050-sample blocks of a tone over
+    noise, 16-bit stereo, joint, the default chain, repeated to
+    STORE_LANES lanes."""
+    import numpy as np
+
+    from wvpk_torch.container import parse_blocks
+    from wvpk_torch.engine.staging import group_blocks
+    from wvpk_torch.testgen import EncodeSpec, encode_file
+
+    n = 22050 * STORE_BLOCKS
+    rng = np.random.default_rng(15)
+    sig = 6000 * np.sin(2 * np.pi * 440 * np.arange(n) / 44100) \
+        + rng.normal(0, 800, n)
+    pcm = np.stack([sig, 0.6 * sig + rng.normal(0, 300, n)], 1)
+    data = encode_file(np.round(pcm).astype(np.int64), EncodeSpec(
+        block_samples=22050, joint=True, terms=(18, 18, 2, 17, 3),
+        deltas=(2,) * 5))
+    states = [b.state for b in parse_blocks(data)]
+    (b,) = group_blocks((states * (STORE_LANES // len(states) + 1))
+                        [:STORE_LANES])
+    return b
+
+
+def _device_ms(evt, total=False) -> float:
+    """An averaged profiler event's device time (its own, or with
+    `total` its children's too), in ms, under either of torch's names."""
+    name = "device_time_total" if total else "self_device_time_total"
+    us = getattr(evt, name, None)
+    if us is None:
+        us = getattr(evt, name.replace("device", "cuda"))
+    return us / 1e3
+
+
+def measure_store(root: str, reps: int) -> dict:
+    """One --store turn on `root`."""
+    _import_root(root)
+    import torch
+
+    from wvpk_torch.engine import pipeline
+    from wvpk_torch.engine.staging import bucket_tensors
+    from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda
+
+    dev = torch.device("cuda")
+    b = _library_bucket()
+    t = bucket_tensors(b, dev)
+    prof = b.profile
+
+    def deliver():
+        return pipeline.deliver_bucket(b, t)
+
+    def entropy():
+        return entropy_decode_cuda(
+            t["words"], t["nwords_lane"], t["med"], t["slow"], t["acc"],
+            t["delta"], mono=prof.mono, nsteps=prof.nsteps, hybrid=False)
+
+    digest = _digest(deliver())
+    for fn in (deliver, entropy):     # a round untimed: clocks come up
+        _timed(fn, reps)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    deliver()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    deliver_ms, entropy_ms = _timed(deliver, reps), _timed(entropy, reps)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as p:
+        deliver()
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, _device_ms(e)) for e in p.key_averages()
+                      if _device_ms(e) > 0), key=lambda r: -r[1])
+    ops = sorted(((e.key, str(e.input_shapes), _device_ms(e, total=True))
+                  for e in p.key_averages(group_by_input_shape=True)
+                  if e.key.startswith("aten::")), key=lambda r: -r[2])
+    return {"root": root, "lanes": len(b.states),
+            "steps": prof.nsamples_cap, "deliver_ms": deliver_ms,
+            "entropy_ms": entropy_ms, "store_ms": deliver_ms - entropy_ms,
+            "peak_mb": peak / 2**20, "kernel_ms": kernels[:12],
+            "kernel_ms_sum": sum(ms for _k, ms in kernels),
+            "ops_by_shape_ms": [r for r in ops[:12] if r[2] > 0],
+            "digest": digest, "card": torch.cuda.get_device_name(0)}
+
+
+def ab_store(old: str, new: str, reps: int) -> int:
+    turns = []
+    for root in (old, new, new, old):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), root,
+             "--store-turn", "--reps", str(reps)],
+            capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+        turn = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(turn))
+        turns.append(turn)
+    same = all(t["digest"] == turns[0]["digest"] for t in turns)
+    sides = {"old": turns[0::3], "new": turns[1:3]}
+    print(json.dumps({
+        "same_outputs": same,
+        **{key: {side: [t[key] for t in ts] for side, ts in sides.items()}
+           for key in ("deliver_ms", "entropy_ms", "store_ms", "peak_mb",
+                       "kernel_ms_sum")}}))
+    return 0 if same else 1
 
 
 def _mixed_buckets(cs):
@@ -1014,6 +1139,11 @@ def main() -> int:
     ap.add_argument("--e2e-turn", action="store_true",
                     help="measure the root OLD's decode_states calls in "
                     "this process")
+    ap.add_argument("--store", action="store_true",
+                    help="a library-shaped bucket's delivery: OLD NEW in "
+                    "turns")
+    ap.add_argument("--store-turn", action="store_true",
+                    help="measure the root OLD's delivery in this process")
     ap.add_argument("--sass", action="store_true",
                     help="compare OLD's and NEW's SASS of SASS_SOURCES")
     a = ap.parse_args()
@@ -1032,6 +1162,13 @@ def main() -> int:
     if a.encode_turn:
         print(json.dumps(measure_encode(a.old, a.reps, a.calls)))
         return 0
+    if a.store_turn:
+        print(json.dumps(measure_store(a.old, a.reps)))
+        return 0
+    if a.store:
+        if not (a.old and a.new):
+            ap.error("--store takes OLD_ROOT and NEW_ROOT")
+        return ab_store(a.old, a.new, a.reps)
     if a.e2e_turn:
         print(json.dumps(measure_e2e(a.old, a.calls)))
         return 0
