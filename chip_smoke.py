@@ -39,7 +39,15 @@ Phases, each printing one JSON line:
      CPU copy (the wvc arm too, on corrections made from a seed),
      synthetic mixed buckets running every compiled chain, stereo and
      mono, with and without the wvc arm, then decode_states, sample-exact,
-     each table chain's kernel and the generic one launched;
+     each table chain's kernel and the generic one launched; then the very
+     high corpus (VH_FILES files of 4 s on WavPack's 16-term very high
+     chain, a block of each written mono, repeated to VH_COPIES): its
+     kernels against their plain versions (the 4-warp chain kernel,
+     both stores) and decode_states, sample-exact, every lane on the very
+     high chains' kernels; at the very high library cell's bucket shape
+     (1,925 lanes of 44,100 samples) the 4-warp kernel against the
+     generic one on the same lanes, equal, both timed beside the default
+     chain's kernel on a bucket of that shape;
   4. hybrid lossy, the slice's headline: the 10 hybrid signals of the JAX
      bench (2 s 16-bit stereo, HYBRID_BITRATE, bitrates 256..976, balance
      on every third, two term chains), each repeated 37 times; the hybrid
@@ -235,6 +243,14 @@ MIX_CHAINS = (("bench", (18, 17, 2)), ("fast", (17, 17)),
               ("high", (18, 18, 18, -2, 2, 3, 5, -1, 17, 4)),
               ("outside", (3, 17, -3, 2)))
 MIX_FILES = 2
+# the very high corpus: VH_FILES files of SECONDS 16-bit stereo on the
+# very high chain (wavpack -hh, 16 terms), each with one block of equal
+# channels written mono (FALSE_STEREO, the mono chain), repeated to
+# VH_COPIES files; and the very high library cell's bucket shape (PERF.md
+# section 4): LIB_LANES stereo lanes of LIB_BLOCK samples (libwavpack's
+# block for -hh at 44.1 kHz), LIB_DISTINCT blocks repeated
+VH_FILES, VH_COPIES = 4, 48
+LIB_LANES, LIB_BLOCK, LIB_DISTINCT = 1925, 44100, 16
 # the entropy kernel's edge streams: lanes per profile
 # (wvpk_torch/testgen/edge.py)
 EDGE_LANES = 64
@@ -1195,6 +1211,127 @@ def phase_mixed(dev, futures):
         raise AssertionError(f"mixed chains: a kernel did not run: "
                              f"{launches}")
     return full, launches, states
+
+
+def _chain(name):
+    from wvpk_torch.ops.decorr_cuda import CHAINS
+
+    (terms,) = [t for n, _m, t in CHAINS if n == name]
+    return terms
+
+
+def very_high_file(k, n=None):
+    """File k of the very high corpus: a tone pair on the very high chain,
+    deltas 2, joint stereo, 4,096-sample blocks; its second block's
+    channels equal (the left one) and written mono on the mono chain, as
+    `wavpack` writes such a block. Returns (bytes, pcm)."""
+    from wvpk_torch.testgen import EncodeSpec
+    from wvpk_torch.testgen.encoder import encode_blocks
+
+    n = n or int(44100 * SECONDS)
+    pcm = _tone_pair(1900 + k, 150 + 70 * k, 5000 + 700 * k, 300 + 50 * k,
+                     0.6, 32768, n)
+    blk = 4096
+    pcm[blk:2 * blk, 1] = pcm[blk:2 * blk, 0]
+    stereo, mono = _chain("very_high"), _chain("very_high_mono")
+    data = []
+    for terms, lo, hi in ((stereo, 0, blk), (mono, blk, 2 * blk),
+                          (stereo, 2 * blk, n)):
+        fs = terms is mono
+        spec = EncodeSpec(block_samples=blk, joint=not fs, false_stereo=fs,
+                          terms=terms, deltas=(2,) * len(terms),
+                          total_samples_override=n)
+        data += encode_blocks(pcm[lo:hi, :1] if fs else pcm[lo:hi], spec,
+                              start_sample=lo, first=lo == 0, last=hi >= n)
+    return b"".join(data), pcm
+
+
+def library_bucket(chain, dev):
+    """A bucket at the library cell's shape on `chain`: LIB_DISTINCT
+    LIB_BLOCK-sample blocks of a tone over noise (16-bit stereo, joint,
+    deltas 2) repeated to LIB_LANES lanes; its tensors on `dev` and the
+    entropy kernel's residuals. Returns (bucket, its tensors, the entropy
+    kernel's `broke`, the decorrelation kernel's arguments)."""
+    from wvpk_torch.container import parse_blocks
+    from wvpk_torch.engine.staging import bucket_tensors, group_blocks
+    from wvpk_torch.ops.entropy_cuda import entropy_decode_cuda
+    from wvpk_torch.testgen import EncodeSpec, encode_file
+
+    pcm = _tone_pair(2100, 440, 6000, 800, 0.6, 32768,
+                     LIB_BLOCK * LIB_DISTINCT)
+    data = encode_file(pcm, EncodeSpec(block_samples=LIB_BLOCK, joint=True,
+                                       terms=chain,
+                                       deltas=(2,) * len(chain)))
+    states = [b.state for b in parse_blocks(data)]
+    (b,) = group_blocks((states * (LIB_LANES // len(states) + 1))
+                        [:LIB_LANES])
+    t = bucket_tensors(b, dev)
+    args, kw = _entropy_io(t, b.profile)
+    res, broke, _ = entropy_decode_cuda(*args, hybrid=False, **kw)
+    return b, t, broke, _decorr_args(t, res)
+
+
+def phase_very_high(dev):
+    """WavPack's very high mode (16 terms): the corpus' kernels against
+    their plain versions (compare_phase: the very high chain's 4-warp
+    kernel, both stores), decode_states sample-exact with the oracle on
+    probe blocks, every lane on the very high chains' kernels (the mono
+    blocks' too), none on the generic one; then at the very high
+    library cell's bucket shape the 4-warp kernel (the packed store the
+    decode launches, and the (T, L, C) store) against the generic kernel
+    on the same lanes, equal, both timed in turns, beside the default
+    chain's kernel on a bucket of that shape. Returns (results,
+    launches)."""
+    from wvpk_torch.engine.pipeline import packed_route
+    from wvpk_torch.ops.decorr import Pack
+    from wvpk_torch.ops.decorr_cuda import decorr_post_cuda
+
+    t0 = time.perf_counter()
+    got = [very_high_file(k) for k in range(VH_FILES)]
+    files, pcms = [g[0] for g in got], [g[1] for g in got]
+    states, per_file = parse_corpus(files, VH_COPIES)
+    frames = _frames(pcms, VH_COPIES)
+    _corpus_line("very_high", files, VH_COPIES, states, frames, t0)
+    full = compare_phase("very_high", states, dev)
+    launches = decode_phase("very_high", states, frames, dev,
+                            ("entropy", "decorr"),
+                            check_exact(states, per_file, pcms))
+    need = ("decorr:very_high", "decorr:very_high_mono")
+    if min(launches.get(k, 0) for k in need) < 1 \
+            or launches.get("decorr:generic", 0) \
+            or launches.get("decorr:generic_mono", 0):
+        raise AssertionError(f"very high: launches {launches}, expected "
+                             f"{need} and no generic decorrelation")
+
+    lib = {}
+    for name in ("very_high", "default"):
+        b, t, broke, dargs = library_bucket(_chain(name), dev)
+        pack = Pack(broke, t["shift"], packed_route(b), False)
+        runs = {"packed": dict(static_terms=b.static_terms, pack=pack),
+                "unpacked": dict(static_terms=b.static_terms)}
+        if name == "very_high":
+            runs.update(generic_packed=dict(pack=pack), generic_unpacked={})
+        fns = {k: (lambda kw=kw: decorr_post_cuda(*dargs, mono=False, **kw))
+               for k, kw in runs.items()}
+        if name == "very_high":
+            for store in ("packed", "unpacked"):
+                want, have = fns["generic_" + store](), fns[store]()
+                _sync()
+                if not all(torch.equal(w, h) for w, h in zip(want, have)):
+                    raise AssertionError(f"very high {store} store at the "
+                                         "library bucket != generic kernel")
+                del want, have
+        order = list(fns) + list(fns)[::-1]
+        turns = {}
+        for k in order:
+            turns.setdefault(k, []).append(_events_ms(fns[k], 5))
+        lib[name] = {"lanes": len(b.states), "T": b.profile.nsamples_cap,
+                     "static_terms": list(b.static_terms), "ms": turns}
+        del dargs, t
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "very_high_library_bucket", **lib}))
+    full["library_bucket"] = lib
+    return full, launches
 
 
 def phase_hybrid(dev):
@@ -2734,8 +2871,8 @@ def _kernel_label(mangled: str) -> str:
     decorr_chain<false,false,18,17,2>."""
     import re
 
-    m = re.search(r"\d+([a-z_]+(?:kernel|chain|generic)[a-z_]*)I(.*)E",
-                  mangled)
+    m = re.search(
+        r"\d+([a-z_]+(?:kernel|chain|generic|split)[a-z_]*)I(.*)E", mangled)
     if not m:
         return mangled
     args = []
@@ -2794,7 +2931,8 @@ def print_build(phase, names, seconds):
                              if k in names}}
     bad = []
     for key, src, prefixes, count in (
-            ("decorr_chain", ("decorr",), ("decorr_chain",), None),
+            ("decorr_chain", ("decorr",), ("decorr_chain", "decorr_split"),
+             None),
             ("encode_coder", ("encode_words", "encode_hybrid"),
              ("words_kernel", "hybrid_chain"), None),
             ("invert_chain", ("encode_invert",), ("invert_chain",), 16),
@@ -2906,6 +3044,8 @@ def main() -> int:
         mark("lossless")
         mixed, m_launches, m_states = phase_mixed(dev, mixed_futures)
         mark("mixed")
+        very_high, v_launches = phase_very_high(dev)
+        mark("very_high")
         hybrid, h_launches = phase_hybrid(dev)
         wvc, c_launches, ((c_wv, c_wvc), c_pcm), c_states = phase_wvc(dev)
         phase_wvc_edges(dev)
@@ -2993,6 +3133,11 @@ def main() -> int:
          mixed["decorr"]),
         ("decorr_post[packed, hybrid]", "decorr.cu", "decorr_pallas.py:163",
          h_launches["decorr"], hybrid["decorr_packed"]),
+        ("decorr_post[packed, very_high]", "decorr.cu",
+         "decorr_pallas.py:163", v_launches["decorr"],
+         very_high["decorr_packed"]),
+        ("decorr_post[very_high]", "decorr.cu", "decorr_pallas.py:163", 0,
+         very_high["decorr"]),
         ("wvx_inject", "wvx.cu", "post.py:145", x_launches["wvx"],
          wvx["wvx"]),
         ("wvc_corrections", "wvc.cu", "entropy.py:352", c_launches["wvc"],

@@ -26,8 +26,8 @@ from wvpk_torch.ops.dsd import dsd_fast_decode_bytes, dsd_high_decode_bytes
 from wvpk_torch.ops.dsd_cuda import dsd_fast_decode_cuda, \
     dsd_high_decode_cuda, int64_lanes
 from wvpk_torch.ops.decorr import Pack, decorr_post, decorr_post_wvc
-from wvpk_torch.ops.decorr_cuda import CHAINS, decorr_post_cuda, \
-    decorr_post_wvc_cuda
+from wvpk_torch.ops.decorr_cuda import CHAINS, ENCODE_CHAINS, \
+    decorr_post_cuda, decorr_post_wvc_cuda
 from wvpk_torch.ops.decorr_select import decorr_packed_any, \
     decorr_post_any, decorr_post_wvc_any
 from wvpk_torch.ops.entropy import entropy_decode, wvc_corrections
@@ -420,7 +420,7 @@ RAGGED_STEPS = {(False, 1): 202, (False, 2): 203, (False, 3): 202,
 
 
 @pytest.mark.parametrize("steps", ["200", "ragged"])
-@pytest.mark.parametrize("kernel", ["generic", "chain"])
+@pytest.mark.parametrize("kernel", ["generic", "chain", "very_high"])
 @pytest.mark.parametrize("bps,mono,hybrid", PACKED,
                          ids=[f"bps{b}-{'mono' if m else 'stereo'}-"
                               f"{'hybrid' if h else 'lossless'}"
@@ -433,14 +433,15 @@ def test_decorr_packed_store_matches_plain_chain(cuda, bps, mono, hybrid,
     past each lane's sample count and muted rows included; 45 lanes, 200
     steps (a ragged last tile) or RAGGED_STEPS, lanes muted by `broke` and
     by the mute
-    limit, sample counts 0, 1 and 37; the generic kernel on random chains
-    and the `default` chain's kernel; CRC and first_bad as the unpacked
-    store's."""
+    limit, sample counts 0, 1 and 37; the generic kernel on random chains,
+    the `default` chain's kernel and the very high chain's 4-warp
+    kernel; CRC and first_bad as the unpacked store's."""
     chain = None
     kw = {}
-    if kernel == "chain":
+    if kernel != "generic":
+        prefix = "default" if kernel == "chain" else "very_high"
         chain = [c for n, m, c in CHAINS
-                 if m == mono and n.startswith("default")][0]
+                 if m == mono and n.startswith(prefix)][0]
         kw["static_terms"] = chain
     T = 200 if steps == "200" else RAGGED_STEPS[mono, bps]
     arrays, broke, shift, bs = _packed_lanes(50 + bps, T, 45, mono, bps,
@@ -467,6 +468,96 @@ def test_decorr_packed_store_matches_plain_chain(cuda, bps, mono, hybrid,
         unclipped = fixup(masked, pack.shift, bs, None, None,
                           is_float=False, int32_expand=False, hybrid=False)
         assert not torch.equal(pack_samples(unclipped, bps=bps), want)
+
+
+def test_decorr_very_high_library_bucket_matches_generic(cuda):
+    """The very high chain's 4-warp kernel at the library cell's bucket
+    shape, 1,925 stereo lanes staged at 65,536 steps, 44,100 samples a
+    lane (libwavpack's block for -hh at 44.1 kHz) but for a few short and
+    empty lanes, both stores: equal to the
+    generic kernel on the same lanes (the plain version takes minutes at
+    this size; the tests above hold both kernels to it on small buckets),
+    payload, CRC and first_bad, each kernel's launch counted."""
+    name = "very_high"
+    (chain,) = [c for n, _m, c in CHAINS if n == name]
+    T, L = 65536, 1925
+    arrays, broke, shift, _bs = _packed_lanes(90, T, L, False, 2, False,
+                                              chain)
+    arrays[8][4:] = 44100
+    arrays[8][L - 3:] = (0, 1, 44099)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    pack = Pack(*(torch.from_numpy(a).to(cuda) for a in (broke, shift)), 2,
+                False)
+    fn = decorr_post_cuda
+    for kw in ({}, {"pack": pack}):
+        before = dict(fn.chain_launches)
+        got = fn(*args, mono=False, static_terms=chain, **kw)
+        want = fn(*args, mono=False, **kw)
+        torch.cuda.synchronize()
+        assert fn.chain_launches[name] == before[name] + 1
+        assert fn.chain_launches["generic"] == before["generic"] + 1
+        for w, g in zip(want, got):
+            assert torch.equal(w, g)
+        del got, want
+
+
+def _very_high_file(seed, n=2048, block=512):
+    """A stereo stream on the very high chain (16 terms, deltas 2) whose
+    second block has equal channels, written mono on the mono chain
+    (FALSE_STEREO), as `wavpack` writes it. Returns (bytes, pcm)."""
+    terms = {n_: t for n_, _m, t in CHAINS}
+    pcm = noise(n, 2, 3000, seed)
+    pcm[block:2 * block, 1] = pcm[block:2 * block, 0]
+    out = []
+    for name, lo, hi in (("very_high", 0, block),
+                         ("very_high_mono", block, 2 * block),
+                         ("very_high", 2 * block, n)):
+        fs = name.endswith("mono")
+        spec = EncodeSpec(block_samples=block, joint=not fs, false_stereo=fs,
+                          terms=terms[name], deltas=(2,) * len(terms[name]),
+                          total_samples_override=n)
+        out += encode_blocks(pcm[lo:hi, :1] if fs else pcm[lo:hi], spec,
+                             start_sample=lo, first=lo == 0, last=hi >= n)
+    return b"".join(out), pcm
+
+
+def test_decode_counts_chain_and_generic_lanes(cuda):
+    """decode_states on the card of 24 very high streams (72 stereo
+    lanes, a run of the stereo bucket long enough for a chain segment, and
+    24 mono lanes: the very high chains' kernels) and of a stream on a
+    chain outside the table (4 lanes in the same stereo bucket: the
+    generic kernel): every file equal to its source, launch#chain_lanes +
+    launch#generic_lanes = launch#lanes, each lane counted by the kernel
+    that ran it, which the wrapper's launch counts confirm."""
+    from wvpk_torch import trace
+
+    files = [_very_high_file(80 + k) for k in range(24)]
+    pcm = noise(2048, 2, 3000, 84)
+    files.append((encode_file(pcm, EncodeSpec(block_samples=512, joint=True,
+                                              terms=(3, 17, 2),
+                                              deltas=(2, 2, 2))), pcm))
+    states, pcms = [], []
+    for data, p in files:
+        states += [b.state for b in parse_blocks(data)]
+        pcms.append(p)
+    fn = decorr_post_cuda
+    before = dict(fn.chain_launches)
+    with trace.collect() as sink:
+        got = decode_states(states, "cuda")
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in fn.chain_launches.items()
+           if v > before[k]}
+    assert set(ran) == {"very_high", "very_high_mono", "generic"}, ran
+    assert sink["launch#lanes"] == len(states) == 100
+    assert sink["launch#chain_lanes"] == 96
+    assert sink["launch#generic_lanes"] == 4
+    assert sink["launch#chain_lanes"] + sink["launch#generic_lanes"] \
+        == sink["launch#lanes"]
+    for k, p in enumerate(pcms):
+        blocks = got[4 * k:4 * k + 4]
+        assert not any(b.crc_error or b.mute_error for b in blocks)
+        np.testing.assert_array_equal(
+            np.concatenate([b.samples for b in blocks]), p)
 
 
 @pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
@@ -950,11 +1041,11 @@ def _on(device, *arrays):
 
 # the chains of the invert kernel test: "random" (a chain a lane, every
 # term class, cross terms in mono chains too: the run-time kernel), each
-# compiled chain of CHAINS given as static_terms, a chain outside CHAINS
-# and a mono chain with cross terms (static_terms names them: the run-time
+# compiled chain of ENCODE_CHAINS given as static_terms, a chain outside
+# them and a mono chain with cross terms (static_terms names them: the run-time
 # kernel)
 INVERT_CHAINS = ([("random", False), ("random", True)]
-                 + [(name, m) for name, m, _t in CHAINS]
+                 + [(name, m) for name, m, _t in ENCODE_CHAINS]
                  + [("outside", False), ("outside", True),
                     ("cross_mono", True)])
 _INVERT_OUTSIDE = {"outside": {False: (5, 1, -3, 17), True: (5, 1, 17)},
@@ -969,15 +1060,16 @@ _INVERT_OUTSIDE = {"outside": {False: (5, 1, -3, 17), True: (5, 1, 17)},
 def test_encode_invert_kernel_matches_plain(cuda, chain, mono, with_state):
     """Residuals and final state of the invert kernel against the plain
     scan: random chains of 0-16 passes ("random"), or every lane on one
-    chain given as static_terms (its compiled kernel for each of CHAINS,
-    the run-time kernel for the others); random seeds and deltas, values
-    up to 2^20, 300 lanes of 97 steps (not a multiple of the ring's 8 or
-    the staging tile's 32). The launch counts the kernel that ran."""
+    chain given as static_terms (its compiled kernel for each of
+    ENCODE_CHAINS, the run-time kernel for the others); random seeds and
+    deltas, values up to 2^20, 300 lanes of 97 steps (not a multiple of
+    the ring's 8 or the staging tile's 32). The launch counts the kernel
+    that ran."""
     from wvpk_torch.ops.encode_cuda import decorr_invert_cuda, \
         invert_instance
     from wvpk_torch.ops.encode_kernels import decorr_invert_warm
 
-    named = {n: t for n, _m, t in CHAINS}
+    named = {n: t for n, _m, t in ENCODE_CHAINS}
     rng = np.random.default_rng(40 + 2 * len(chain) + mono + 4 * with_state)
     T, L, C = 97, 300, 1 if mono else 2
     targ = rng.integers(-2**20, 2**20, (T, L, C)).astype(np.int32)
@@ -1132,8 +1224,9 @@ HYBRID_PROFILES = {"plain": (False, False), "bitrate": (True, False),
 
 # the chains of the hybrid kernel test: "random" (a chain a lane, the
 # run-time kernel), each compiled chain with static_terms, and one chain
-# outside CHAINS named by static_terms (the run-time kernel)
-HYBRID_CHAINS = ["random"] + [name for name, _m, _t in CHAINS] + ["outside"]
+# outside ENCODE_CHAINS named by static_terms (the run-time kernel)
+HYBRID_CHAINS = (["random"] + [name for name, _m, _t in ENCODE_CHAINS]
+                 + ["outside"])
 _OUTSIDE = {False: (5, 1, -3, 17), True: (5, 1, 17)}
 
 
@@ -1143,14 +1236,14 @@ _OUTSIDE = {False: (5, 1, -3, 17), True: (5, 1, 17)}
 def test_encode_hybrid_kernel_matches_plain(cuda, profile, mono, chain):
     """Payload, bit totals and reconstruction of the fused hybrid kernel
     against the plain scan packed: random chains and seeds ("random"), or
-    every lane on one chain given as static_terms (each of CHAINS of the
-    test's channel count: its compiled kernel; "outside": the run-time
+    every lane on one chain given as static_terms (each of ENCODE_CHAINS
+    of the test's channel count: its compiled kernel; "outside": the run-time
     kernel), silent stretches (the run gate), error limits from 0 up;
     200 lanes. The launch counts the kernel that ran."""
     from wvpk_torch.ops.encode_cuda import hybrid_encode_cuda, \
         hybrid_encode_plain
 
-    named = {n: (m, t) for n, m, t in CHAINS}
+    named = {n: (m, t) for n, m, t in ENCODE_CHAINS}
     if chain in named and named[chain][0] != mono:
         pytest.skip(f"{chain} is a chain of the other channel count")
     bitrate, balance = HYBRID_PROFILES[profile]

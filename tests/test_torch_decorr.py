@@ -249,20 +249,28 @@ def test_decorr_post_any_chain_segments_agree(mono):
 
 def test_chain_table_matches_cuda_source():
     """ops/decorr_cuda.py::CHAINS names the instantiations of the
-    WVPK_CHAIN lines of csrc/decorr_pass.cuh's WVPK_CHAIN_TABLE: the same
-    ids, channel counts and terms, in the same order; the sources that
+    WVPK_CHAIN lines of csrc/decorr_pass.cuh's WVPK_CHAIN_TABLE, then of
+    its WVPK_DECODE_CHAIN_TABLE: the same ids, channel counts and terms,
+    in the same order, ENCODE_CHAINS the first table's; the sources that
     compile a kernel per chain (decorr.cu, encode_hybrid.cu,
-    encode_invert.cu) expand that table and hold no list of their own."""
+    encode_invert.cu) expand the first table and hold no list of their
+    own, and decorr.cu alone expands the second."""
     csrc = Path(decorr_cuda.__file__).parents[1] / "csrc"
     pat = r"^\s*WVPK_CHAIN\((\d+), (true|false), ([-\d, ]+)\)"
-    lines = re.findall(pat, (csrc / "decorr_pass.cuh").read_text(), re.M)
+    header = (csrc / "decorr_pass.cuh").read_text()
+    lines = re.findall(pat, header, re.M)
     got = [(int(i), m == "true", tuple(int(t) for t in terms.split(",")))
            for i, m, terms in lines]
     assert got == [(k, m, t) for k, (_n, m, t) in enumerate(CHAINS)]
+    shared = header[:header.index("#define WVPK_DECODE_CHAIN_TABLE")]
+    assert len(re.findall(pat, shared, re.M)) == len(
+        decorr_cuda.ENCODE_CHAINS)
     for name in ("decorr.cu", "encode_hybrid.cu", "encode_invert.cu"):
         src = (csrc / name).read_text()
         assert re.search(r"^\s*WVPK_CHAIN_TABLE$", src, re.M), name
         assert not re.findall(pat, src, re.M), name
+        assert bool(re.search(r"^\s*WVPK_DECODE_CHAIN_TABLE$", src,
+                              re.M)) == (name == "decorr.cu"), name
 
 
 LANE_RUNS = {

@@ -20,9 +20,9 @@ from wvpk.ops.encode_kernels import entropy_encode_words as jax_words
 from wvpk.ops.encode_kernels import hybrid_encode_scan as jax_hybrid
 from wvpk.testgen.encoder import _crc_fast
 from wvpk.ops.encode_select import invert_any as jax_invert_any
-from wvpk_torch.ops.decorr_cuda import CHAINS as TABLE_CHAINS
-from wvpk_torch.ops.decorr_cuda import GENERIC, INSTANCES, instance_name, \
-    lane_runs
+from wvpk_torch.ops.decorr_cuda import ENCODE_CHAINS as TABLE_CHAINS
+from wvpk_torch.ops.decorr_cuda import ENCODE_INSTANCES, GENERIC, \
+    instance_name, lane_runs
 from wvpk_torch.ops.encode_cuda import INVERT_INSTANCES, chain_kernel, \
     decorr_invert_cuda, encode_words_cuda, encode_words_plain, \
     hybrid_encode_cuda, hybrid_encode_plain, int64_lanes, invert_instance
@@ -667,7 +667,7 @@ def test_invert_any_static_terms_matches_wvpk(k, warm):
 
 
 # static_terms -> the kernel decorr_invert_cuda launches: each chain of
-# CHAINS its own, any other (outside the table, mono with cross terms,
+# ENCODE_CHAINS its own, any other (outside the table, mono with cross terms,
 # empty, None) the run-time kernel
 INVERT_RUNS = [(t, m, name) for name, m, t in TABLE_CHAINS] + [
     ((18, 17, 2, 1), False, "generic"), ((5, 1), True, "generic_mono"),
@@ -693,5 +693,5 @@ def test_invert_cuda_runs_the_chain_kernel(static_terms, mono, ran,
     assert (chain == GENERIC) == ran.startswith("generic")
     key = invert_instance(name, with_state)
     assert key in INVERT_INSTANCES and key.endswith("[state]") == with_state
-    assert set(hybrid_encode_cuda.chain_launches) == set(INSTANCES)
+    assert set(hybrid_encode_cuda.chain_launches) == set(ENCODE_INSTANCES)
     assert set(decorr_invert_cuda.chain_launches) == set(INVERT_INSTANCES)

@@ -41,6 +41,21 @@
 //   keeps them in local memory, and within a group of 8 steps the
 //   compiler overlaps pass k of one sample with the later passes of the
 //   one before.
+// - A chain of the decode-only table (WVPK_DECODE_CHAIN_TABLE: the 16
+//   terms of WavPack's very high mode) holds twice the state of the
+//   longest shared chain: 102 live ring slots and 32 weights in stereo,
+//   past what one thread keeps in registers beside the step's work (one
+//   thread spills). Its kernel (decorr_split) cuts the chain into
+//   SPLIT_STAGES stages of whole passes and gives each a warp of the
+//   block, on the same 32 lanes: stage 0 stages the residuals and runs
+//   the first passes, each stage hands each tile's outputs to the next
+//   through a ring in shared memory laid out as the staging ring, and the
+//   last runs its passes, the post step, the CRCs and either store as a
+//   chain kernel's thread does, reading the last hand-off where that
+//   thread reads its staging ring. The warps meet at a named barrier
+//   after each tile, each a tile behind the one before, so every stage's
+//   weights and rings stay registers. 4 stages: the one cut with no
+//   spill in any instance (PERF.md, Findings).
 // - The generic kernel (decorr_generic) takes each lane's chain at run
 //   time from per-thread arrays in local memory; it serves every other
 //   chain and the mixed tail of a bucket.
@@ -128,6 +143,7 @@ __device__ __forceinline__ void crc_step(uint32_t& crc, int out_l,
 template <bool MONO, bool WVC, bool PACKED, class State>
 struct Lane {
   static constexpr int C = MONO ? 1 : 2;
+  static constexpr bool packed = PACKED;
   State& s;
   const Stage<MONO, WVC>& st;
   int* o;
@@ -171,8 +187,29 @@ struct Lane {
   }
 };
 
+// The end of a lane's scan to the (T, L, C) store: zeros from its sample
+// count ns to T, then its CRCs and first bad sample.
+template <bool MONO, bool WVC, class L>
+__device__ __forceinline__ void finish_lane(const Args& a, int lane, int ns,
+                                            size_t row, const L& ln) {
+  for (int t = ns; t < a.T; ++t) {
+    int* op = ln.o + (size_t)t * row;
+    op[0] = 0;
+    if (!MONO) op[1] = 0;
+  }
+  if (WVC) {
+    a.crc_out[lane] = (int)ln.crc_l;
+    a.crc_wvc_out[lane] = (int)ln.crc;
+  } else {
+    a.crc_out[lane] = (int)ln.crc;
+  }
+  a.first_bad[lane] = ln.fb;
+}
+
 // A lane's whole scan: staging, the steps in groups of 8 (m = t & 7 a
-// constant in each), zeros past its sample count, the CRCs.
+// constant in each), zeros past its sample count, the CRCs. It keeps its
+// own copy of scan_tile's loop: through scan_tile two of its wvc kernels
+// compile to other register counts (PERF.md, Findings).
 template <bool MONO, bool WVC, class State>
 __device__ __forceinline__ void scan(const Args& a, int lane, int* ring,
                                      State& s) {
@@ -203,18 +240,7 @@ __device__ __forceinline__ void scan(const Args& a, int lane, int* ring,
       }
     }
   }
-  for (int t = ns; t < a.T; ++t) {
-    int* op = ln.o + (size_t)t * row;
-    op[0] = 0;
-    if (!MONO) op[1] = 0;
-  }
-  if (WVC) {
-    a.crc_out[lane] = (int)ln.crc_l;
-    a.crc_wvc_out[lane] = (int)ln.crc;
-  } else {
-    a.crc_out[lane] = (int)ln.crc;
-  }
-  a.first_bad[lane] = ln.fb;
+  finish_lane<MONO, WVC>(a, lane, ns, row, ln);
 }
 
 // -- the packed store -------------------------------------------------------
@@ -223,8 +249,9 @@ __device__ __forceinline__ void scan(const Args& a, int lane, int* ring,
 // bucket) the clip to the stored width, bps bytes (UnpackUtils.cs:
 // 1350-1393), then the shift, mod 32.
 struct Fix {
-  int sh, lo, hi;
+  int sh = 0, lo = 0, hi = 0;
 
+  Fix() = default;
   __device__ __forceinline__ Fix(int shift, int bps) : sh(shift & 31) {
     hi = (bps == 1 ? 127 : bps == 2 ? 32767 : 8388607) >> sh;
     lo = (bps == 1 ? -128 : bps == 2 ? -32768 : -8388608) >> sh;
@@ -339,17 +366,99 @@ __device__ __forceinline__ void fill_words(unsigned* g, size_t from,
     *q = pad;
 }
 
-// The packed scan of a block's lanes [base, base + 32) clipped to lane1.
-// The rows are the payload's (L, W) words, W = T C bps / 4. Each thread
-// packs its lane's 8-step groups and stores them to its row (2 C bps
-// words, in 16-byte stores where the row allows; a warp's store lands on
-// 32 rows, but it is one or two stores a group, spread through the scan,
-// where a warp writing shared-memory tiles row by row stalls on its bursts
-// of stores: PERF.md, Findings); the groups past the lane's sample
-// count in its last tile are pad. Then the warp writes the pad of each row
-// up to T (0x80 bytes at 1 byte a sample, else zeros), and rewrites the
-// row of a muted lane (`broke`, or a sample out of range before its
-// sample count) as pad. The CRC and first_bad as the unpacked scan's.
+// A packed lane's row of the payload, the (L, W) words, W = T C bps / 4
+// (T C bps is a multiple of 4), and what its groups' pack takes: the
+// lane's fixup, the launch's bytes a sample and clip (both uniform across
+// the launch, so each group takes one branch), the words of a group of 8
+// steps. Row{} for the (T, L, C) store, which packs nothing.
+struct Row {
+  unsigned* mine = nullptr;
+  Fix fx;
+  int bps = 0, gw = 0;
+  bool clip = false;
+};
+
+template <bool MONO>
+__device__ __forceinline__ Row packed_row(const Args& a, unsigned* mine,
+                                          int shift) {
+  constexpr int C = MONO ? 1 : 2;
+  return {mine, Fix(shift, a.bps), a.bps, 8 * C * a.bps / 4, a.hybrid != 0};
+}
+
+// Tile k of a lane's scan: the steps below ns in groups of 8 (m = t & 7 a
+// constant in each), each by `ln.step(t, m)` (a Lane, or an inner stage's
+// Pass). A packed Lane's thread packs its lane's groups and
+// stores them to its row (2 C bps words, in 16-byte stores where the row
+// allows; a warp's store lands on 32 rows, but it is one or two stores a
+// group, spread through the scan, where a warp writing shared-memory
+// tiles row by row stalls on its bursts of stores: PERF.md, Findings);
+// the steps past ns in the group are pad, and only the words of steps
+// below T are stored.
+template <bool MONO, class Steps>
+__device__ __forceinline__ void scan_tile(const Args& a, int k, int ns,
+                                          Steps& ln, const Row& r) {
+  constexpr int C = MONO ? 1 : 2;
+#pragma unroll 1
+  for (int t8 = k * TILE; t8 < k * TILE + TILE; t8 += 8) {
+    if (t8 + 8 <= ns) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m) ln.step(t8 + m, m);
+    } else {
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        if (t8 + m < ns)
+          ln.step(t8 + m, m);
+        else if constexpr (Steps::packed)
+          ln.pad(m);
+      }
+    }
+    if constexpr (Steps::packed) {
+      const int n = min(8, a.T - t8) * C * r.bps / 4;
+      pack_group<MONO>(ln.pv, r.fx, r.bps, r.clip,
+                       r.mine + (size_t)t8 / 8 * r.gw, n);
+    }
+  }
+}
+
+// The end of a block's packed scan, run by its warp (fill_words strides
+// by the warp's threads) once every lane's groups are stored: each lane's
+// CRC and first bad sample as the unpacked scan's; the pad of each row
+// past the words its groups wrote (its ntiles tiles) up to W (0x80 bytes
+// at 1 byte a sample, else zeros); the row of a muted lane (`broke`, or a
+// sample out of range before its sample count) rewritten as pad. The
+// rows are the block's lanes [base, base + 32) clipped to lane1, from
+// `out`.
+template <bool MONO, bool WVC, class State>
+__device__ __forceinline__ void finish_packed(
+    const Args& a, int base, int lane1, int lane, bool active, int ns_lane,
+    int ntiles, const Lane<MONO, WVC, true, State>& ln, unsigned* out,
+    size_t W) {
+  constexpr int C = MONO ? 1 : 2;
+  if (active) {
+    a.crc_out[lane] = (int)ln.crc;
+    a.first_bad[lane] = ln.fb;
+  }
+  const int bps = a.bps;
+  const unsigned pad = bps == 1 ? 0x80808080u : 0u;
+  // the words each lane's groups wrote
+  const unsigned long long done =
+      (unsigned long long)min(ntiles * TILE, a.T) * C * bps / 4;
+  const int rows = min(STAGE_LANES, lane1 - base);
+  for (int r = 0; r < rows; ++r)
+    fill_words(out + r * W, __shfl_sync(0xFFFFFFFFu, done, r), W, pad);
+  unsigned muted = __ballot_sync(
+      0xFFFFFFFFu, active && (a.broke[lane] != 0 || ln.fb < ns_lane));
+  if (muted) __syncwarp();  // the rows' own stores before their rewrite
+  while (muted) {
+    const int r = __ffs(muted) - 1;
+    muted &= muted - 1;
+    fill_words(out + r * W, 0, W, pad);
+  }
+}
+
+// The packed scan of a block's lanes [base, base + 32) clipped to lane1:
+// each thread's lane through scan_tile into its row of the payload, then
+// finish_packed.
 template <bool MONO, class State>
 __device__ __forceinline__ void scan_packed(const Args& a, int base,
                                             int lane1, bool active,
@@ -366,55 +475,17 @@ __device__ __forceinline__ void scan_packed(const Args& a, int base,
       s, st, nullptr, row, active && a.joint[lane] != 0,
       active ? a.mute_thr[lane] : 0, ns_lane, 0xFFFFFFFFu, 0xFFFFFFFFu,
       ns_lane, ns_lane};
-  const int bps = a.bps;
-  const Fix fx(active ? a.shift[lane] : 0, bps);
-  const bool clip = a.hybrid != 0;
-  const int gw = 8 * C * bps / 4;  // words of a group of 8 steps
-  const size_t W = (size_t)a.T * C * bps / 4;
+  const size_t W = (size_t)a.T * C * a.bps / 4;
   unsigned* out = (unsigned*)a.out + (size_t)base * W;
-  unsigned* mine = out + threadIdx.x * W;
+  const Row r = packed_row<MONO>(a, out + threadIdx.x * W,
+                                 active ? a.shift[lane] : 0);
   const int ntiles = (ns + TILE - 1) / TILE;
   if (ntiles > 0) st.fetch(0);
   for (int k = 0; k < ntiles; ++k) {
     st.advance(k, ntiles);
-#pragma unroll 1
-    for (int t8 = k * TILE; t8 < k * TILE + TILE; t8 += 8) {
-      if (t8 + 8 <= ns) {
-#pragma unroll
-        for (int m = 0; m < 8; ++m) ln.step(t8 + m, m);
-      } else {
-#pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          if (t8 + m < ns)
-            ln.step(t8 + m, m);
-          else
-            ln.pad(m);
-        }
-      }
-      // the words of steps below T (T C bps is a multiple of 4)
-      const int n = min(8, a.T - t8) * C * bps / 4;
-      pack_group<MONO>(ln.pv, fx, bps, clip, mine + (size_t)t8 / 8 * gw, n);
-    }
+    scan_tile<MONO>(a, k, ns, ln, r);
   }
-  if (active) {
-    a.crc_out[lane] = (int)ln.crc;
-    a.first_bad[lane] = ln.fb;
-  }
-  const unsigned pad = bps == 1 ? 0x80808080u : 0u;
-  // the words each lane's groups wrote
-  const unsigned long long done =
-      (unsigned long long)min(ntiles * TILE, a.T) * C * bps / 4;
-  const int rows = min(STAGE_LANES, lane1 - base);
-  for (int r = 0; r < rows; ++r)
-    fill_words(out + r * W, __shfl_sync(0xFFFFFFFFu, done, r), W, pad);
-  unsigned muted = __ballot_sync(
-      0xFFFFFFFFu, active && (a.broke[lane] != 0 || ln.fb < ns_lane));
-  if (muted) __syncwarp();  // the rows' own stores before their rewrite
-  while (muted) {
-    const int r = __ffs(muted) - 1;
-    muted &= muted - 1;
-    fill_words(out + r * W, 0, W, pad);
-  }
+  finish_packed(a, base, lane1, lane, active, ns_lane, ntiles, ln, out, W);
 }
 
 // A block's 32 lanes from lane0 + 32 blockIdx.x, up to lane1, with chain
@@ -451,29 +522,251 @@ decorr_generic(Args a, int lane0, int lane1) {
   run_block<MONO, WVC, PACKED>(a, lane0, lane1, s);
 }
 
-using Kernel = void (*)(Args, int, int);
+// -- the pipelined kernel of a long chain ------------------------------------
 
-// A chain of WVPK_CHAIN_TABLE (decorr_pass.cuh; ops/decorr_cuda.py::CHAINS
-// names the same list) by its id.
-#define WVPK_CHAIN(ID, MONO_, ...)                                  \
-  case ID:                                                          \
-    if constexpr (MONO_ == MONO)                                    \
-      return decorr_chain<MONO, WVC, PACKED, __VA_ARGS__>;          \
-    break;
+template <int... TV>
+struct Terms {
+  static constexpr int K = sizeof...(TV);
+};
 
-// The kernel compiled for chain `id`, else (an id of the other channel
-// count too) the generic one.
+// Split<N, Terms<>, Terms<TV...>>: ::front the first N terms, ::back the
+// others.
+template <int N, class F, class B>
+struct Split;
+template <int N, int... F, int B0, int... B>
+struct Split<N, Terms<F...>, Terms<B0, B...>>
+    : Split<N - 1, Terms<F..., B0>, Terms<B...>> {};
+template <int... F, int B0, int... B>
+struct Split<0, Terms<F...>, Terms<B0, B...>> {
+  using front = Terms<F...>;
+  using back = Terms<B0, B...>;
+};
+template <int... F>
+struct Split<0, Terms<F...>, Terms<>> {
+  using front = Terms<F...>;
+  using back = Terms<>;
+};
+
+template <bool MONO, class T>
+struct StateOf;
+template <bool MONO, int... TV>
+struct StateOf<MONO, Terms<TV...>> {
+  using type = ChainState<MONO, TV...>;
+};
+
+// The state of passes [LO, HI) of the chain Chain (a Terms).
+template <bool MONO, int LO, int HI, class Chain>
+using PassesState = typename StateOf<
+    MONO, typename Split<LO, Terms<>, typename Split<HI, Terms<>, Chain>::
+                                          front>::back>::type;
+
+// The first pass of stage j of a chain of K passes cut into S stages: as
+// even as whole passes allow, the last stage's post step, CRCs and store
+// weighing about one pass.
+__host__ __device__ constexpr int stage_cut(int K, int S, int j) {
+  return j >= S ? K : (2 * j * (K + 1) + S) / (2 * S);
+}
+
+// A lane's seeds from pass k0 on, as ChainState::load reads them: the
+// (L, 16) and (L, 16, 8) arrays offset by k0 passes.
+struct Seeds {
+  const int *deltas, *wa0, *wb0, *hist_a, *hist_b;
+};
+
+__device__ __forceinline__ Seeds seeds_from(const Args& a, int k0) {
+  return {a.deltas + k0, a.wa0 + k0, a.wb0 + k0, a.hist_a + 8 * k0,
+          a.hist_b + 8 * k0};
+}
+
+// The barrier the S warps of a pipelined block meet at after each tile.
+template <int S>
+__device__ __forceinline__ void tile_barrier() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(S * THREADS) : "memory");
+}
+
+// An inner stage's step: its passes on step t's values from `in`, their
+// outputs written to `out` at step t (both laid out as a staging ring).
+template <bool MONO, class State>
+struct Pass {
+  static constexpr bool packed = false;
+  State& s;
+  const Stage<MONO, false>& in;
+  const Stage<MONO, false>& out;
+
+  __device__ __forceinline__ void step(int t, int m) {
+    const int* v = in.at(t);
+    int va = v[0];
+    int vb = MONO ? 0 : v[1];
+    s.apply(m, va, vb);
+    int* h = const_cast<int*>(out.at(t));
+    h[0] = va;
+    if (!MONO) h[1] = vb;
+  }
+};
+
+// What the warps of a pipelined block share of a lane: the block's 32
+// lanes from lane0 + 32 blockIdx.x, up to lane1; column `col` of each
+// ring is lane `lane`'s; `rounds` the block's most tiles plus the
+// pipeline's depth.
+struct Block {
+  int col, base, lane, ns_lane, ns, ntiles, rounds;
+  bool active;
+  size_t row, at;
+};
+
+// Stage J of S of a pipelined block's scan, run by warp S - 1 - J (the
+// last stage by warp 0, whose threads fill_words strides by): the chain's
+// passes [stage_cut(J), stage_cut(J + 1)). Shared memory holds S rings
+// (and, with WVC, a ring of corrections after them), each laid out as a
+// staging ring: ring 0 the residuals stage 0 stages, ring j the outputs
+// of stage j - 1 that stage j reads. At round k stage j works on tile
+// k - j, and every warp meets at tile_barrier after each round: stage j
+// fills buffer (k - j) & 1 of ring j + 1 while stage j + 1 drains the
+// other, so no buffer is written while read. Every stage runs its tiles
+// through scan_tile: an inner stage's steps its passes (Pass), the last
+// stage's its passes and then what scan or scan_packed does per step
+// (Lane, its staging ring the last hand-off and the corrections it stages
+// itself), and their tails (finish_lane, finish_packed).
+template <bool MONO, bool WVC, bool PACKED, int S, int J, class Chain>
+__device__ __forceinline__ void run_stage(const Args& a, const Block& b,
+                                          int lane1, int* smem) {
+  constexpr int C = MONO ? 1 : 2;
+  constexpr int R = ring_ints<MONO, false>();
+  constexpr int LO = stage_cut(Chain::K, S, J);
+  constexpr int HI = stage_cut(Chain::K, S, J + 1);
+  static_assert(LO < HI, "a stage without passes");
+  using State = PassesState<MONO, LO, HI, Chain>;
+  State s;
+  if (b.active) s.load(seeds_from(a, LO), b.lane);
+  int* ring = smem + J * R + b.col * C;
+
+  if constexpr (J + 1 < S) {
+    Stage<MONO, false> in{ring, a.res + b.at, nullptr, b.row, b.ns};
+    const Stage<MONO, false> out{ring + R, nullptr, nullptr, b.row, b.ns};
+    Pass<MONO, State> p{s, in, out};
+    if (J == 0 && b.ntiles > 0) in.fetch(0);
+    for (int k = 0; k < b.rounds; ++k) {
+      const int kt = k - J;
+      if (kt >= 0 && kt < b.ntiles) {
+        if (J == 0) in.advance(kt, b.ntiles);
+        scan_tile<MONO>(a, kt, b.ns, p, Row{});
+      }
+      tile_barrier<S>();
+    }
+  } else {
+    const Stage<MONO, WVC> hs{ring, nullptr, nullptr, b.row, b.ns};
+    Stage<MONO, false> cs{ring + R, WVC ? a.corr + b.at : nullptr, nullptr,
+                          b.row, b.ns};
+    const int lane = b.lane, ns = b.ns, ns_lane = b.ns_lane;
+    const bool active = b.active;
+    Lane<MONO, WVC, PACKED, State> ln{
+        s, hs, PACKED ? nullptr : a.out + b.at, b.row,
+        active && a.joint[lane] != 0, active ? a.mute_thr[lane] : 0,
+        ns_lane, 0xFFFFFFFFu, 0xFFFFFFFFu, ns_lane, ns_lane};
+    const size_t W = PACKED ? (size_t)a.T * C * a.bps / 4 : 0;
+    unsigned* out = (unsigned*)a.out + (size_t)b.base * W;
+    const Row r = PACKED ? packed_row<MONO>(a, out + b.col * W,
+                                            active ? a.shift[lane] : 0)
+                         : Row{};
+    if (WVC && b.ntiles > 0) cs.fetch(0);
+    for (int k = 0; k < b.rounds; ++k) {
+      const int kt = k - J;
+      if (kt >= 0 && kt < b.ntiles) {
+        if (WVC) cs.advance(kt, b.ntiles);
+        scan_tile<MONO>(a, kt, ns, ln, r);
+      }
+      tile_barrier<S>();
+    }
+    if constexpr (PACKED)  // warp 0 runs the last stage: fill_words
+      finish_packed(a, b.base, lane1, lane, active, ns_lane, b.ntiles, ln,
+                    out, W);
+    else if (active)
+      finish_lane<MONO, WVC>(a, lane, ns, b.row, ln);
+  }
+}
+
+template <bool MONO, bool WVC, bool PACKED, int S, class Chain,
+          size_t... J>
+__device__ __forceinline__ void run_stages(const Args& a, int lane0,
+                                           int lane1, int* smem,
+                                           std::index_sequence<J...>) {
+  constexpr int C = MONO ? 1 : 2;
+  Block b;
+  b.col = threadIdx.x % THREADS;
+  b.base = lane0 + blockIdx.x * THREADS;
+  b.lane = b.base + b.col;
+  b.active = b.lane < lane1;
+  b.ns_lane = b.active ? a.nsamples[b.lane] : 0;
+  b.ns = max(min(b.ns_lane, a.T), 0);
+  b.row = (size_t)a.L * C;
+  b.at = (size_t)(b.active ? b.lane : 0) * C;
+  b.ntiles = (b.ns + TILE - 1) / TILE;
+  b.rounds = __reduce_max_sync(0xFFFFFFFFu, b.ntiles) + S - 1;
+  const int w = S - 1 - (int)(threadIdx.x / THREADS);
+  ((w == (int)J ? run_stage<MONO, WVC, PACKED, S, (int)J, Chain>(a, b, lane1,
+                                                                smem)
+                : void()),
+   ...);
+}
+
+// The stages of a pipelined block, a warp each.
+constexpr int SPLIT_STAGES = 4;
+
+// The bytes of a pipelined block's rings: the staging ring, the S - 1
+// hand-offs and with WVC the corrections' ring.
+template <bool MONO, bool WVC>
+constexpr int split_smem() {
+  return 4 * ring_ints<MONO, false>() * (SPLIT_STAGES + (WVC ? 1 : 0));
+}
+
+template <bool MONO, bool WVC, bool PACKED, int... TV>
+__global__ void __launch_bounds__(SPLIT_STAGES * THREADS)
+decorr_split(Args a, int lane0, int lane1) {
+  extern __shared__ __align__(16) int split_rings[];
+  run_stages<MONO, WVC, PACKED, SPLIT_STAGES, Terms<TV...>>(
+      a, lane0, lane1, split_rings,
+      std::make_index_sequence<SPLIT_STAGES>{});
+}
+
+// A kernel, the threads of its blocks (each block 32 lanes) and their
+// dynamic shared memory.
+struct Launch {
+  void (*fn)(Args, int, int);
+  int threads, smem;
+};
+
+// The kernel compiled for chain `id` (decorr_pass.cuh's tables;
+// ops/decorr_cuda.py::CHAINS names the same list): a chain of
+// WVPK_CHAIN_TABLE on decorr_chain, one of WVPK_DECODE_CHAIN_TABLE on
+// decorr_split; else (an id of the other channel count too) the generic
+// one.
 template <bool MONO, bool WVC, bool PACKED>
-Kernel kernel_for(int id) {
+Launch kernel_for(int id) {
+#define WVPK_CHAIN(ID, MONO_, ...)                                   \
+  case ID:                                                           \
+    if constexpr (MONO_ == MONO)                                     \
+      return {decorr_chain<MONO, WVC, PACKED, __VA_ARGS__>, THREADS, 0}; \
+    break;
   switch (id) {
     WVPK_CHAIN_TABLE
     default:
       break;
   }
-  return decorr_generic<MONO, WVC, PACKED>;
-}
-
 #undef WVPK_CHAIN
+#define WVPK_CHAIN(ID, MONO_, ...)                                \
+  case ID:                                                        \
+    if constexpr (MONO_ == MONO)                                  \
+      return {decorr_split<MONO, WVC, PACKED, __VA_ARGS__>,       \
+              SPLIT_STAGES * THREADS, split_smem<MONO, WVC>()};   \
+    break;
+  switch (id) {
+    WVPK_DECODE_CHAIN_TABLE
+    default:
+      break;
+  }
+#undef WVPK_CHAIN
+  return {decorr_generic<MONO, WVC, PACKED>, THREADS, 0};
+}
 
 }  // namespace
 
@@ -516,7 +809,7 @@ extern "C" int wvpk_decorr_post(const void* res, const void* corr,
          (const int*)broke,        (const int*)shift,
          L,                        T,
          bps,                      hybrid};
-  const Kernel fn =
+  const Launch k =
       mono ? (wvc      ? kernel_for<true, true, false>(chain)
               : packed ? kernel_for<true, false, true>(chain)
                        : kernel_for<true, false, false>(chain))
@@ -524,8 +817,14 @@ extern "C" int wvpk_decorr_post(const void* res, const void* corr,
               : packed ? kernel_for<false, false, true>(chain)
                        : kernel_for<false, false, false>(chain));
   void* params[] = {&a, &lo, &hi};
+  if (k.smem > 48 * 1024) {  // past the default limit: ask for it
+    const cudaError_t e = cudaFuncSetAttribute(
+        (const void*)k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        k.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const cudaError_t e = cudaLaunchKernel(
-      (const void*)fn, dim3((hi - lo + THREADS - 1) / THREADS), dim3(THREADS),
-      params, 0, (cudaStream_t)stream);
+      (const void*)k.fn, dim3((hi - lo + THREADS - 1) / THREADS),
+      dim3(k.threads), params, k.smem, (cudaStream_t)stream);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

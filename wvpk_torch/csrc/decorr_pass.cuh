@@ -340,4 +340,13 @@ struct GenericState {
   WVPK_CHAIN(6, true, 18, 18, 2, 17, 3)                    \
   WVPK_CHAIN(7, true, 18, 18, 18, 2, 3, 5, 17, 4)
 
+// The chains only the decode kernel compiles (decorr.cu), ids after
+// WVPK_CHAIN_TABLE's and CHAINS' rows after its rows: the 16 terms of
+// WavPack's very high mode (wavpack -hh), the mono chain without the
+// cross-channel terms. The encoder writes no such chain, so the encode
+// sources do not expand this table.
+#define WVPK_DECODE_CHAIN_TABLE                                            \
+  WVPK_CHAIN(8, false, 18, 18, 2, 3, -2, 18, 2, 4, 7, 5, 3, 6, 8, -1, 18, 2) \
+  WVPK_CHAIN(9, true, 18, 18, 2, 3, 18, 2, 4, 7, 5, 3, 6, 8, 18, 2)
+
 }  // namespace wvpk

@@ -8,10 +8,12 @@ plain version is ops/decorr.py::decorr_post_wvc. Given `pack`,
 delivered payload itself (plain version ops/decorr.py::decorr_post_packed).
 
 csrc/decorr.cu compiles one kernel for each chain of CHAINS (its terms
-fixed, so its weights and history rings live in registers) and a generic
-kernel that reads each lane's chain at run time. A call splits the
-bucket's lanes into runs by chain, as wvpk's decorr_post_any does with
-`static_terms` and `chain_segments`, and launches each run's kernel on its
+fixed, so its weights and history rings live in registers; a chain past
+the encoder's, WavPack's 16-term very high mode, on four warps a block,
+each a stage of the chain) and a generic kernel that reads each lane's
+chain at run time. A call splits the bucket's lanes into runs by chain,
+as wvpk's decorr_post_any does with `static_terms` and `chain_segments`,
+and launches each run's kernel on its
 lane range: the first run on the caller's stream, the others on side
 streams forked from it and joined back into it, so that the runs of a
 mixed bucket share the card. The lanes of a run
@@ -31,11 +33,14 @@ from ..device import side_streams
 I32 = torch.int32
 _INT32_MAX = (1 << 31) - 1
 
-# The chains csrc/decorr.cu compiles, by id: its WVPK_CHAIN lines name the
-# same (id, mono, terms) in the same order, and a test holds them equal.
-# The bench chain and the encoder presets (encode.PRESETS); mono chains
-# are the stereo ones without their cross-channel terms, as the encoder
-# writes them.
+# The chains csrc/decorr.cu compiles, by id: the WVPK_CHAIN lines of
+# csrc/decorr_pass.cuh name the same (id, mono, terms) in the same order,
+# and a test holds them equal. First WVPK_CHAIN_TABLE's, which the encode
+# kernels compile too (ENCODE_CHAINS): the bench chain and the encoder
+# presets (encode.PRESETS). Then WVPK_DECODE_CHAIN_TABLE's, the decode
+# kernel's alone: the 16 terms of WavPack's very high mode (wavpack -hh),
+# which the encoder does not write. Mono chains are the stereo ones
+# without their cross-channel terms, as the encoders write them.
 CHAINS = (
     ("bench", False, (18, 17, 2)),
     ("fast", False, (17, 17)),
@@ -45,12 +50,18 @@ CHAINS = (
     ("fast_mono", True, (17, 17)),
     ("default_mono", True, (18, 18, 2, 17, 3)),
     ("high_mono", True, (18, 18, 18, 2, 3, 5, 17, 4)),
+    ("very_high", False,
+     (18, 18, 2, 3, -2, 18, 2, 4, 7, 5, 3, 6, 8, -1, 18, 2)),
+    ("very_high_mono", True, (18, 18, 2, 3, 18, 2, 4, 7, 5, 3, 6, 8, 18, 2)),
 )
+ENCODE_CHAINS = CHAINS[:8]
 GENERIC = -1        # the id of the generic kernel
 _IDS = {(mono, terms): k for k, (_name, mono, terms) in enumerate(CHAINS)}
 # the kernels' names, as the launch counters key them
 INSTANCES = tuple(name for name, _m, _t in CHAINS) + ("generic",
                                                      "generic_mono")
+ENCODE_INSTANCES = tuple(name for name, _m, _t in ENCODE_CHAINS) + (
+    "generic", "generic_mono")
 
 
 def instance_name(chain_id: int, mono: bool) -> str:

@@ -13,7 +13,8 @@ csrc/encode_words.cu, csrc/encode_hybrid.cu).
   total_bits (L,) int64), and for hybrid the reconstruction (T, L, C).
 
 csrc/encode_invert.cu and csrc/encode_hybrid.cu compile one kernel for
-each chain of decorr_cuda.CHAINS (its weights and rings in registers) and a
+each chain of decorr_cuda.ENCODE_CHAINS (its weights and rings in
+registers; the decode kernel's own chains, past them, are not) and a
 run-time kernel for any chain; `static_terms` (wvpk's argument: every lane
 carries this chain) picks the chain's kernel, as decorr_cuda.lane_runs
 does (`chain_kernel`). Both coders run lanes whose medians fit int32 in
@@ -28,7 +29,8 @@ import ctypes
 import torch
 
 from .. import _build
-from .decorr_cuda import INSTANCES, _as_i32, instance_name, lane_runs
+from .decorr_cuda import ENCODE_CHAINS, ENCODE_INSTANCES, GENERIC, \
+    _as_i32, instance_name, lane_runs
 from .encode_kernels import entropy_encode_words, hybrid_encode_scan
 from .encode_pack import pack_segments_device, payload_cap
 from .entropy_cuda import _aligned, _check, _tables
@@ -76,9 +78,11 @@ def _chain(name, L, dev, terms, deltas, num_terms, w0a, w0b, h0a, h0b):
 def chain_kernel(L: int, mono: bool, static_terms=None) -> tuple[int, str]:
     """The kernel an invert or hybrid launch of L lanes runs for its
     `static_terms`: (chain id, instance name), the chain's own kernel where
-    decorr_cuda.lane_runs names one for the whole launch, else the
-    run-time kernel."""
+    decorr_cuda.lane_runs names one of ENCODE_CHAINS for the whole launch,
+    else the run-time kernel (for the decode kernel's own chains too)."""
     ((chain, _lo, _hi),) = lane_runs(L, mono, static_terms)
+    if chain >= len(ENCODE_CHAINS):
+        chain = GENERIC
     return chain, instance_name(chain, mono)
 
 
@@ -91,7 +95,7 @@ def invert_instance(instance: str, with_state: bool) -> str:
 
 # the invert's 20 kernels: each instance, without and with the final state
 INVERT_INSTANCES = tuple(invert_instance(n, s) for s in (False, True)
-                         for n in INSTANCES)
+                         for n in ENCODE_INSTANCES)
 
 
 def decorr_invert_cuda(targets, terms, deltas, num_terms, w0a, w0b, h0a,
@@ -99,8 +103,9 @@ def decorr_invert_cuda(targets, terms, deltas, num_terms, w0a, w0b, h0a,
                        static_terms=None):
     """Same contract as ops/encode_kernels.py::decorr_invert_warm, on CUDA
     tensors. `static_terms`, when every lane carries that chain, runs its
-    compiled kernel where CHAINS has one (wvpk's rule: ignored when empty,
-    or on mono with cross terms); the run-time kernel runs otherwise."""
+    compiled kernel where ENCODE_CHAINS has one (wvpk's rule: ignored when
+    empty, or on mono with cross terms); the run-time kernel runs
+    otherwise."""
     T, L, C = _targets("encode_invert kernel", targets, mono)
     dev = targets.device
     chain, instance = chain_kernel(L, mono, static_terms)
@@ -201,7 +206,7 @@ def hybrid_encode_cuda(targets, terms, deltas, num_terms, med0, slow0, acc0,
     """The fused hybrid encode on CUDA tensors: (words (L,
     payload_cap(T * C)) int32, total_bits (L,) int64, recon (T, L, C)
     int32), as hybrid_encode_plain. `static_terms`, when every lane
-    carries that chain, runs its compiled kernel where CHAINS has one
+    carries that chain, runs its compiled kernel where ENCODE_CHAINS has one
     (wvpk's rule: ignored when empty, or on mono with cross terms); the
     run-time kernel runs otherwise."""
     T, L, C = _targets("encode_hybrid kernel", targets, mono)
@@ -239,11 +244,12 @@ decorr_invert_cuda.launches = 0
 decorr_invert_cuda.warm_launches = 0
 encode_words_cuda.launches = 0
 hybrid_encode_cuda.launches = 0
-# of `launches`, those of each kernel instantiation (decorr_cuda.INSTANCES:
-# the chains of CHAINS, "generic" and "generic_mono" the run-time kernel;
+# of `launches`, those of each kernel instantiation (ENCODE_INSTANCES:
+# the chains of ENCODE_CHAINS, "generic" and "generic_mono" the run-time
+# kernel;
 # the invert's with the final state as "<name>[state]", INVERT_INSTANCES)
 decorr_invert_cuda.chain_launches = dict.fromkeys(INVERT_INSTANCES, 0)
-hybrid_encode_cuda.chain_launches = dict.fromkeys(INSTANCES, 0)
+hybrid_encode_cuda.chain_launches = dict.fromkeys(ENCODE_INSTANCES, 0)
 # the last launch's count of lanes coded with int64 medians (int64_lanes),
 # a (1,) int32 tensor on its device (0 on staged lanes)
 encode_words_cuda.wide_lanes = None

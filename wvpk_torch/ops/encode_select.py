@@ -6,10 +6,10 @@ encode_pack.py), CUDA tensors the kernels (encode_cuda.py). There is no
 option and no fallback between them. `invert_any` and `hybrid_scan_any`
 take wvpk's `static_terms` ("every lane carries this chain"): on the card
 each runs its kernel compiled for that chain where
-ops/decorr_cuda.py::CHAINS has one, else the run-time kernel, which reads
-each lane's chain, so every chain runs on the card (mono chains with cross
-terms too, which wvpk leaves to its XLA scan); the plain versions ignore
-it. The word coder has no chain.
+ops/decorr_cuda.py::ENCODE_CHAINS has one, else the run-time kernel, which
+reads each lane's chain, so every chain runs on the card (mono chains with
+cross terms too, which wvpk leaves to its XLA scan); the plain versions
+ignore it. The word coder has no chain.
 """
 
 from __future__ import annotations
