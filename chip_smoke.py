@@ -42,12 +42,13 @@ Phases, each printing one JSON line:
      each table chain's kernel and the generic one launched; then the very
      high corpus (VH_FILES files of 4 s on WavPack's 16-term very high
      chain, a block of each written mono, repeated to VH_COPIES): its
-     kernels against their plain versions (the 4-warp chain kernel,
+     kernels against their plain versions (the chain's cluster kernel,
      both stores) and decode_states, sample-exact, every lane on the very
      high chains' kernels; at the very high library cell's bucket shape
-     (1,925 lanes of 44,100 samples) the 4-warp kernel against the
+     (1,925 lanes of 44,100 samples) the cluster kernel against the
      generic one on the same lanes, equal, both timed beside the default
-     chain's kernel on a bucket of that shape;
+     chain's kernel on a bucket of that shape, and the SM of each CTA of
+     a launch in the cluster kernel's shape, none shared;
   4. hybrid lossy, the slice's headline: the 10 hybrid signals of the JAX
      bench (2 s 16-bit stereo, HYBRID_BITRATE, bitrates 256..976, balance
      on every third, two term chains), each repeated 37 times; the hybrid
@@ -1273,18 +1274,24 @@ def library_bucket(chain, dev):
 
 def phase_very_high(dev):
     """WavPack's very high mode (16 terms): the corpus' kernels against
-    their plain versions (compare_phase: the very high chain's 4-warp
+    their plain versions (compare_phase: the very high chain's cluster
     kernel, both stores), decode_states sample-exact with the oracle on
     probe blocks, every lane on the very high chains' kernels (the mono
     blocks' too), none on the generic one; then at the very high
-    library cell's bucket shape the 4-warp kernel (the packed store the
+    library cell's bucket shape the cluster kernel (the packed store the
     decode launches, and the (T, L, C) store) against the generic kernel
     on the same lanes, equal, both timed in turns, beside the default
-    chain's kernel on a bucket of that shape. Returns (results,
+    chain's kernel on a bucket of that shape; and the SM (%smid) of each
+    CTA of a launch in the cluster kernel's shape at that bucket's lanes,
+    every CTA resident at once, no SM shared. A traced decode of the
+    corpus counts every lane as the cluster kernel's
+    (`launch#cluster_lanes` = `launch#lanes`). Returns (results,
     launches)."""
+    from wvpk_torch import trace
+    from wvpk_torch.engine import decode_states
     from wvpk_torch.engine.pipeline import packed_route
     from wvpk_torch.ops.decorr import Pack
-    from wvpk_torch.ops.decorr_cuda import decorr_post_cuda
+    from wvpk_torch.ops.decorr_cuda import cluster_sms, decorr_post_cuda
 
     t0 = time.perf_counter()
     got = [very_high_file(k) for k in range(VH_FILES)]
@@ -1302,6 +1309,14 @@ def phase_very_high(dev):
             or launches.get("decorr:generic_mono", 0):
         raise AssertionError(f"very high: launches {launches}, expected "
                              f"{need} and no generic decorrelation")
+    with trace.collect() as sink:
+        decode_states(states, dev)
+    lanes = {k: sink[f"launch#{k}"]
+             for k in ("lanes", "chain_lanes", "cluster_lanes")}
+    print(json.dumps({"phase": "very_high_traced_lanes", **lanes}))
+    if len(set(lanes.values())) != 1:
+        raise AssertionError(f"very high: lanes {lanes}, expected every "
+                             "lane on the cluster kernel")
 
     lib = {}
     for name in ("very_high", "default"):
@@ -1329,6 +1344,13 @@ def phase_very_high(dev):
                      "static_terms": list(b.static_terms), "ms": turns}
         del dargs, t
         torch.cuda.empty_cache()
+    sm, seen = cluster_sms(LIB_LANES, False, dev)
+    sm = sm.cpu().tolist()
+    lib["cluster_ctas"] = {"ctas": len(sm), "sms": len(set(sm)),
+                           "all_resident": bool(seen.all())}
+    if len(set(sm)) != len(sm) or not lib["cluster_ctas"]["all_resident"]:
+        raise AssertionError(f"cluster kernel's CTAs: {lib['cluster_ctas']}"
+                             f", SMs {sm}")
     print(json.dumps({"phase": "very_high_library_bucket", **lib}))
     full["library_bucket"] = lib
     return full, launches
@@ -2872,7 +2894,7 @@ def _kernel_label(mangled: str) -> str:
     import re
 
     m = re.search(
-        r"\d+([a-z_]+(?:kernel|chain|generic|split)[a-z_]*)I(.*)E", mangled)
+        r"\d+([a-z_]+(?:kernel|chain|generic|cluster)[a-z_]*)I(.*)E", mangled)
     if not m:
         return mangled
     args = []
@@ -2921,7 +2943,8 @@ def print_build(phase, names, seconds):
     in registers (the run-time kernels keep their chains in local
     memory), or the run fails. The registers of the invert's, the
     correction scan's, the wvx and the decorrelation kernels' instances
-    are listed by name, and every kernel above FLAG_REGISTERS is named."""
+    are listed by name, the very high chain's cluster kernels with their
+    spills, and every kernel above FLAG_REGISTERS is named."""
     from wvpk_torch import _build
 
     ptxas = {k: ptxas_table(_build.ptxas_log[k]) for k in names
@@ -2931,7 +2954,7 @@ def print_build(phase, names, seconds):
                              if k in names}}
     bad = []
     for key, src, prefixes, count in (
-            ("decorr_chain", ("decorr",), ("decorr_chain", "decorr_split"),
+            ("decorr_chain", ("decorr",), ("decorr_chain", "decorr_cluster"),
              None),
             ("encode_coder", ("encode_words", "encode_hybrid"),
              ("words_kernel", "hybrid_chain"), None),
@@ -2954,6 +2977,12 @@ def print_build(phase, names, seconds):
             line[f"{key}_registers_stack"] = {
                 r["kernel"]: [r.get("registers"), r.get("stack")]
                 for r in ptxas[src]}
+    if "decorr" in ptxas:
+        line["decorr_cluster_registers_stack_spills"] = {
+            r["kernel"]: [r.get("registers"), r.get("stack"),
+                          r.get("spill_stores"), r.get("spill_loads")]
+            for r in ptxas["decorr"]
+            if r["kernel"].startswith("decorr_cluster")}
     line[f"kernels_above_{FLAG_REGISTERS}_registers"] = {
         r["kernel"]: r["registers"] for rows in ptxas.values() for r in rows
         if r.get("registers", 0) > FLAG_REGISTERS}

@@ -25,9 +25,10 @@ from wvpk_torch.engine.staging import bucket_tensors, group_blocks
 from wvpk_torch.ops.dsd import dsd_fast_decode_bytes, dsd_high_decode_bytes
 from wvpk_torch.ops.dsd_cuda import dsd_fast_decode_cuda, \
     dsd_high_decode_cuda, int64_lanes
-from wvpk_torch.ops.decorr import Pack, decorr_post, decorr_post_wvc
+from wvpk_torch.ops.decorr import Pack, decorr_post, decorr_post_packed, \
+    decorr_post_wvc
 from wvpk_torch.ops.decorr_cuda import CHAINS, ENCODE_CHAINS, \
-    decorr_post_cuda, decorr_post_wvc_cuda
+    cluster_sms, decorr_post_cuda, decorr_post_wvc_cuda
 from wvpk_torch.ops.decorr_select import decorr_packed_any, \
     decorr_post_any, decorr_post_wvc_any
 from wvpk_torch.ops.entropy import entropy_decode, wvc_corrections
@@ -434,7 +435,7 @@ def test_decorr_packed_store_matches_plain_chain(cuda, bps, mono, hybrid,
     steps (a ragged last tile) or RAGGED_STEPS, lanes muted by `broke` and
     by the mute
     limit, sample counts 0, 1 and 37; the generic kernel on random chains,
-    the `default` chain's kernel and the very high chain's 4-warp
+    the `default` chain's kernel and the very high chain's cluster
     kernel; CRC and first_bad as the unpacked store's."""
     chain = None
     kw = {}
@@ -471,7 +472,7 @@ def test_decorr_packed_store_matches_plain_chain(cuda, bps, mono, hybrid,
 
 
 def test_decorr_very_high_library_bucket_matches_generic(cuda):
-    """The very high chain's 4-warp kernel at the library cell's bucket
+    """The very high chain's cluster kernel at the library cell's bucket
     shape, 1,925 stereo lanes staged at 65,536 steps, 44,100 samples a
     lane (libwavpack's block for -hh at 44.1 kHz) but for a few short and
     empty lanes, both stores: equal to the
@@ -499,6 +500,79 @@ def test_decorr_very_high_library_bucket_matches_generic(cuda):
         for w, g in zip(want, got):
             assert torch.equal(w, g)
         del got, want
+
+
+CLUSTER_STORES = [(mono, store) for mono in (False, True)
+                  for store in ("packed", "unpacked", "wvc")]
+CLUSTER_IDS = [f"{'mono' if m else 'stereo'}-{st}" for m, st in CLUSTER_STORES]
+
+
+def _cluster_case(cuda, mono, store, seed, T, L):
+    """The very high chain of `mono`'s channel count on L lanes of T
+    steps through the cluster kernel and the plain version, compared
+    output for output: sample counts 0, 1, 37 and T on the first lanes,
+    the rest between T / 2 and T; a tenth of the lanes broke, about a
+    third with a mute limit that fires; the packed store at 2 bytes a
+    sample, the (T, L, C) store, or the wvc arm."""
+    name = "very_high_mono" if mono else "very_high"
+    (chain,) = [c for n, _m, c in CHAINS if n == name]
+    arrays, broke, shift, _bs = _packed_lanes(seed, T, L, mono, 2, False,
+                                              chain)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    kw = {}
+    fn, plain = decorr_post_cuda, decorr_post
+    if store == "wvc":
+        corr = np.random.default_rng(seed + 2).integers(
+            -2**12, 2**12, tuple(args[0].shape)).astype(np.int32)
+        args.insert(1, torch.from_numpy(corr).to(cuda))
+        fn, plain = decorr_post_wvc_cuda, decorr_post_wvc
+    elif store == "packed":
+        kw["pack"] = Pack(*(torch.from_numpy(a).to(cuda)
+                            for a in (broke, shift)), 2, False)
+        plain = decorr_post_packed
+    before = fn.chain_launches[name]
+    got = fn(*args, mono=mono, static_terms=chain, **kw)
+    want = plain(*args, mono=mono, **kw)
+    torch.cuda.synchronize()
+    assert fn.chain_launches[name] == before + 1
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    first_bad = want[-1]
+    assert (first_bad < args[-3]).any()        # a lane muted by its limit
+
+
+@pytest.mark.parametrize("mono,store", CLUSTER_STORES, ids=CLUSTER_IDS)
+def test_decorr_cluster_kernel_ragged_lanes_match_plain(cuda, mono, store):
+    """The very high chains' cluster kernel on 300 lanes (9 warps and 12
+    lanes: a cluster's last CTAs with a part-filled warp and two empty
+    ones) of 202 steps (lanes ending mid-tile, sample counts 0 and 1,
+    muted lanes), each store, equal to the plain version."""
+    _cluster_case(cuda, mono, store, 110 + len(store), 202, 300)
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["stereo", "mono"])
+def test_decorr_cluster_kernel_more_clusters_than_a_wave(cuda, mono):
+    """More clusters than the card holds at once (4,500 lanes: 36
+    clusters of four CTAs, one CTA an SM, 132 SMs), packed store, equal to
+    the plain version: the later clusters wait for SMs and still pipe
+    their tiles through."""
+    _cluster_case(cuda, mono, "packed", 120, 100, 4500)
+
+
+@pytest.mark.parametrize("lanes", [1925, 2640])
+@pytest.mark.parametrize("mono,wvc", [(False, False), (True, False),
+                                      (False, True)],
+                         ids=["stereo", "mono", "stereo-wvc"])
+def test_decorr_cluster_ctas_on_sms_of_their_own(cuda, lanes, mono, wvc):
+    """At the very high library cell's lane counts (1,925-2,640 a call), a
+    launch in the cluster kernel's shape (its CTAs, threads and dynamic
+    shared memory) has every CTA resident at once, each on an SM no other
+    CTA of the launch shares (%smid), clusters of four."""
+    sm, seen = cluster_sms(lanes, mono, cuda, wvc=wvc)
+    sm = sm.cpu().tolist()
+    assert len(sm) == (lanes + 127) // 128 * 4
+    assert bool(seen.all()), seen.cpu().tolist()
+    assert -1 not in sm and len(set(sm)) == len(sm), sm
 
 
 def _very_high_file(seed, n=2048, block=512):

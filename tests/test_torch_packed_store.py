@@ -221,24 +221,31 @@ def test_decode_counts_lanes_and_packed_lanes(how, options):
 
 
 def test_kernel_binding_matches_its_c_signature():
-    """The ctypes argument types of ops/decorr_cuda.py give
-    wvpk_decorr_post's C parameters in csrc/decorr.cu, pointer for
-    pointer and int for int (a mismatch shows only on the card)."""
+    """The ctypes argument types of ops/decorr_cuda.py give the C
+    parameters in csrc/decorr.cu of wvpk_decorr_post, and of the cluster
+    kernel's CTA count and probe (wvpk_decorr_ctas,
+    wvpk_decorr_cluster_probe), pointer for pointer and int for int (a
+    mismatch shows only on the card)."""
     src = (Path(decorr_cuda.__file__).parents[1] / "csrc" / "decorr.cu"
            ).read_text()
-    sig = re.search(r'extern "C" int wvpk_decorr_post\(([^)]*)\)', src)
-    kinds = ["p" if "*" in p else "i" for p in sig.group(1).split(",")]
+    names = ("wvpk_decorr_post", "wvpk_decorr_ctas",
+             "wvpk_decorr_cluster_probe")
 
     class Lib:
-        class wvpk_decorr_post:
-            pass
+        pass
 
+    for name in names:
+        setattr(Lib, name, type(name, (), {}))
     mp = pytest.MonkeyPatch()
     mp.setattr(decorr_cuda._build, "load", lambda name: Lib)
     try:
-        fn = decorr_cuda._lib().wvpk_decorr_post
+        lib = decorr_cuda._lib()
     finally:
         mp.undo()
     import ctypes
-    got = ["p" if t is ctypes.c_void_p else "i" for t in fn.argtypes]
-    assert got == kinds
+    for name in names:
+        sig = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+        kinds = ["p" if "*" in p else "i" for p in sig.group(1).split(",")]
+        got = ["p" if t is ctypes.c_void_p else "i"
+               for t in getattr(lib, name).argtypes]
+        assert got == kinds, name

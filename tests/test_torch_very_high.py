@@ -15,10 +15,10 @@ from wvpk_torch import trace
 from wvpk_torch.container import parse_blocks
 from wvpk_torch.engine import decode_states
 from wvpk_torch.engine.staging import group_blocks
-from wvpk_torch.ops.decorr_cuda import CHAINS, ENCODE_CHAINS, GENERIC, \
-    lane_runs
+from wvpk_torch.ops.decorr_cuda import CHAINS, CLUSTER, ENCODE_CHAINS, \
+    GENERIC, lane_runs
 from wvpk_torch.ops.encode_cuda import chain_kernel
-from wvpk_torch.testgen import EncodeSpec
+from wvpk_torch.testgen import EncodeSpec, encode_file
 from wvpk_torch.testgen.encoder import encode_blocks
 
 CHAIN = {name: (k, terms) for k, (name, _m, terms) in enumerate(CHAINS)}
@@ -108,6 +108,7 @@ def test_very_high_buckets_route_to_compiled_chains(stream):
     assert sink["launch#lanes"] == 9
     assert sink["launch#chain_lanes"] == 9
     assert sink["launch#generic_lanes"] == 0
+    assert sink["launch#cluster_lanes"] == 9
 
 
 LANE_RUNS = {
@@ -145,3 +146,46 @@ def test_encode_chains_are_the_shared_table():
         "very_high", "very_high_mono"]
     assert len(VERY_HIGH) == 16 and VERY_HIGH_MONO == tuple(
         t for t in VERY_HIGH if t > 0)
+
+
+CLUSTER_FILES = {"very_high": (VERY_HIGH, True), "default": (
+    CHAIN["default"][1], False)}
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_FILES))
+def test_cluster_lanes_count_the_very_high_chains(name):
+    """A traced CPU decode of a stereo file counts `launch#cluster_lanes`,
+    the lanes the route sends to the cluster kernel: every lane of a
+    very high file, none of a file on the default chain; every block
+    equal to the source."""
+    terms, cluster = CLUSTER_FILES[name]
+    rng = np.random.default_rng(18)
+    pcm = np.clip(np.round(rng.normal(0, 2000, (5 * BLOCK + 300, 2))),
+                  -32768, 32767).astype(np.int64)
+    data = encode_file(pcm, EncodeSpec(block_samples=BLOCK, joint=True,
+                                       terms=terms,
+                                       deltas=(2,) * len(terms)))
+    states = [b.state for b in parse_blocks(data)]
+    with trace.collect() as sink:
+        got = decode_states(states, device="cpu")
+    np.testing.assert_array_equal(
+        np.concatenate([b.samples for b in got]), pcm)
+    assert sink["launch#lanes"] == len(states) == 6
+    assert sink["launch#chain_lanes"] == 6
+    assert sink["launch#cluster_lanes"] == (6 if cluster else 0)
+
+
+@pytest.mark.parametrize("name", [name for name, _m, _t in CHAINS])
+def test_lane_runs_route_each_chain_to_its_kernel(name):
+    """lane_runs gives every chain of CHAINS its own id, alone and as a
+    segment of a mixed bucket; the ids of the decode-only table
+    (WVPK_DECODE_CHAIN_TABLE, the very high chains) and only those run
+    on the cluster kernel."""
+    k, terms = CHAIN[name]
+    mono = CHAINS[k][1]
+    assert lane_runs(40, mono, static_terms=terms) == [(k, 0, 40)]
+    segs = ((None, 0, 3, 16), (terms, 3, 40, len(terms)))
+    assert lane_runs(40, mono, chain_segments=segs) == [(GENERIC, 0, 3),
+                                                        (k, 3, 40)]
+    assert (k in CLUSTER) == (k >= len(ENCODE_CHAINS))
+    assert GENERIC not in CLUSTER

@@ -45,17 +45,22 @@
 //   terms of WavPack's very high mode) holds twice the state of the
 //   longest shared chain: 102 live ring slots and 32 weights in stereo,
 //   past what one thread keeps in registers beside the step's work (one
-//   thread spills). Its kernel (decorr_split) cuts the chain into
-//   SPLIT_STAGES stages of whole passes and gives each a warp of the
-//   block, on the same 32 lanes: stage 0 stages the residuals and runs
-//   the first passes, each stage hands each tile's outputs to the next
-//   through a ring in shared memory laid out as the staging ring, and the
-//   last runs its passes, the post step, the CRCs and either store as a
-//   chain kernel's thread does, reading the last hand-off where that
-//   thread reads its staging ring. The warps meet at a named barrier
-//   after each tile, each a tile behind the one before, so every stage's
-//   weights and rings stay registers. 4 stages: the one cut with no
-//   spill in any instance (PERF.md, Findings).
+//   thread spills). Its kernel (decorr_cluster) cuts the chain into
+//   SPLIT_STAGES stages of whole passes and gives each a CTA of a thread
+//   block cluster, each CTA on an SM of its own (its dynamic shared
+//   memory is more than half an SM's); warp w of every CTA runs its
+//   stage on the same 32 lanes. Stage 0 stages the residuals and runs the
+//   first passes; each stage writes each tile's outputs into the next
+//   stage's ring in that CTA's shared memory (distributed shared memory),
+//   signalled by an mbarrier there, and the next stage gives the slot
+//   back through an mbarrier in the writer's CTA, so a stage runs up to
+//   RING_TILES tiles ahead of the next and none waits at a block-wide
+//   barrier. The last stage runs its passes, the post step, the CRCs and
+//   either store as a chain kernel's thread does, reading its ring where
+//   that thread reads its staging ring. Every stage's weights and rings
+//   stay registers, and each SM runs one stage's loop on its four
+//   sub-partitions. The same stages as warps of one block, meeting at a
+//   barrier after each tile, did not overlap (PERF.md, Findings).
 // - The generic kernel (decorr_generic) takes each lane's chain at run
 //   time from per-thread arrays in local memory; it serves every other
 //   chain and the mixed tail of a bucket.
@@ -140,12 +145,16 @@ __device__ __forceinline__ void crc_step(uint32_t& crc, int out_l,
 
 // One sample through the chain, the post step and the CRCs; stored to
 // the (T, L, C) output, or, PACKED, kept in `pv` for the group's pack.
-template <bool MONO, bool WVC, bool PACKED, class State>
+// Its inputs `st` are a staging ring, or a view laid out as one (the
+// cluster kernel's last stage: its hand-off ring, with WVC the
+// corrections 2 BUF on).
+template <bool MONO, bool WVC, bool PACKED, class State,
+          class In = Stage<MONO, WVC>>
 struct Lane {
   static constexpr int C = MONO ? 1 : 2;
   static constexpr bool packed = PACKED;
   State& s;
-  const Stage<MONO, WVC>& st;
+  const In& st;
   int* o;
   size_t row;
   bool jt;
@@ -348,10 +357,12 @@ __device__ __forceinline__ void pack_group(const int* v, const Fix& fx,
   }
 }
 
-// Words [from, to) of g set to `pad` by the warp, its threads on
-// neighbouring words (16-byte stores between the ends' 16-byte bounds).
+// Words [from, to) of g set to `pad` by the warp, its threads (`col`,
+// 0-31) on neighbouring words (16-byte stores between the ends' 16-byte
+// bounds).
 __device__ __forceinline__ void fill_words(unsigned* g, size_t from,
-                                           size_t to, unsigned pad) {
+                                           size_t to, unsigned pad,
+                                           unsigned col) {
   unsigned* p = g + from;
   unsigned* e = g + to;
   unsigned* a16 = (unsigned*)(((uintptr_t)p + 15) & ~(uintptr_t)15);
@@ -359,10 +370,10 @@ __device__ __forceinline__ void fill_words(unsigned* g, size_t from,
   uint4* v = (uint4*)a16;
   uint4* ve = (uint4*)((uintptr_t)e & ~(uintptr_t)15);
   if (ve < v) ve = v;
-  for (unsigned* q = p + threadIdx.x; q < a16; q += STAGE_LANES) *q = pad;
+  for (unsigned* q = p + col; q < a16; q += STAGE_LANES) *q = pad;
   const uint4 pad4 = make_uint4(pad, pad, pad, pad);
-  for (uint4* q = v + threadIdx.x; q < ve; q += STAGE_LANES) *q = pad4;
-  for (unsigned* q = (unsigned*)ve + threadIdx.x; q < e; q += STAGE_LANES)
+  for (uint4* q = v + col; q < ve; q += STAGE_LANES) *q = pad4;
+  for (unsigned* q = (unsigned*)ve + col; q < e; q += STAGE_LANES)
     *q = pad;
 }
 
@@ -420,19 +431,19 @@ __device__ __forceinline__ void scan_tile(const Args& a, int k, int ns,
   }
 }
 
-// The end of a block's packed scan, run by its warp (fill_words strides
-// by the warp's threads) once every lane's groups are stored: each lane's
-// CRC and first bad sample as the unpacked scan's; the pad of each row
-// past the words its groups wrote (its ntiles tiles) up to W (0x80 bytes
-// at 1 byte a sample, else zeros); the row of a muted lane (`broke`, or a
-// sample out of range before its sample count) rewritten as pad. The
-// rows are the block's lanes [base, base + 32) clipped to lane1, from
-// `out`.
-template <bool MONO, bool WVC, class State>
+// The end of a warp's packed scan, run by the warp (fill_words strides
+// by its threads, this one's column `col`) once every lane's groups are
+// stored: each lane's CRC and first bad sample as the unpacked scan's;
+// the pad of each row past the words its groups wrote (its ntiles tiles)
+// up to W (0x80 bytes at 1 byte a sample, else zeros); the row of a
+// muted lane (`broke`, or a sample out of range before its sample count)
+// rewritten as pad. The rows are the warp's lanes [base, base + 32)
+// clipped to lane1, from `out`.
+template <bool MONO, bool WVC, class State, class In>
 __device__ __forceinline__ void finish_packed(
     const Args& a, int base, int lane1, int lane, bool active, int ns_lane,
-    int ntiles, const Lane<MONO, WVC, true, State>& ln, unsigned* out,
-    size_t W) {
+    int ntiles, const Lane<MONO, WVC, true, State, In>& ln, unsigned* out,
+    size_t W, unsigned col) {
   constexpr int C = MONO ? 1 : 2;
   if (active) {
     a.crc_out[lane] = (int)ln.crc;
@@ -445,14 +456,15 @@ __device__ __forceinline__ void finish_packed(
       (unsigned long long)min(ntiles * TILE, a.T) * C * bps / 4;
   const int rows = min(STAGE_LANES, lane1 - base);
   for (int r = 0; r < rows; ++r)
-    fill_words(out + r * W, __shfl_sync(0xFFFFFFFFu, done, r), W, pad);
+    fill_words(out + r * W, __shfl_sync(0xFFFFFFFFu, done, r), W, pad,
+               col);
   unsigned muted = __ballot_sync(
       0xFFFFFFFFu, active && (a.broke[lane] != 0 || ln.fb < ns_lane));
   if (muted) __syncwarp();  // the rows' own stores before their rewrite
   while (muted) {
     const int r = __ffs(muted) - 1;
     muted &= muted - 1;
-    fill_words(out + r * W, 0, W, pad);
+    fill_words(out + r * W, 0, W, pad, col);
   }
 }
 
@@ -485,7 +497,8 @@ __device__ __forceinline__ void scan_packed(const Args& a, int base,
     st.advance(k, ntiles);
     scan_tile<MONO>(a, k, ns, ln, r);
   }
-  finish_packed(a, base, lane1, lane, active, ns_lane, ntiles, ln, out, W);
+  finish_packed(a, base, lane1, lane, active, ns_lane, ntiles, ln, out, W,
+                threadIdx.x);
 }
 
 // A block's 32 lanes from lane0 + 32 blockIdx.x, up to lane1, with chain
@@ -578,89 +591,255 @@ __device__ __forceinline__ Seeds seeds_from(const Args& a, int k0) {
           a.hist_b + 8 * k0};
 }
 
-// The barrier the S warps of a pipelined block meet at after each tile.
-template <int S>
-__device__ __forceinline__ void tile_barrier() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(S * THREADS) : "memory");
+// The stages of a long chain's cluster: a CTA each, each on an SM of its
+// own.
+constexpr int SPLIT_STAGES = 4;
+// The warps of a cluster's CTA: warp w of every CTA runs its stage on the
+// same 32 lanes.
+constexpr int CLUSTER_WARPS = 4;
+// The tiles of a hand-off ring: how far a stage may run ahead of the next
+// (2 ran as fast as 4 in stereo and faster in mono: PERF.md, Findings).
+constexpr int RING_TILES = 2;
+static_assert(RING_TILES == 2, "a warp's hand-off ring is laid out as a "
+                               "staging ring: stage 0 stages its residuals "
+                               "in it, and the last stage's corrections "
+                               "sit 2 tiles on, where Lane reads them");
+// A CTA's mbarriers, per warp and ring slot: `full`, its input ring's slot
+// written by the stage before, and `empty`, its output ring's slot (in the
+// next stage's CTA) read by the next stage; each takes an arrival of each
+// thread of the reading warp.
+constexpr int CLUSTER_BARRIERS = 2 * CLUSTER_WARPS * RING_TILES;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// An inner stage's step: its passes on step t's values from `in`, their
-// outputs written to `out` at step t (both laid out as a staging ring).
-template <bool MONO, class State>
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// The shared::cluster address of `p` in the cluster's CTA `rank`.
+__device__ __forceinline__ unsigned peer_addr(const void* p, int rank) {
+  unsigned q;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(q)
+               : "r"(smem_addr(p)), "r"(rank));
+  return q;
+}
+
+// Every thread of the cluster meets here; what each wrote before is
+// visible to all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival, releasing this thread's earlier reads and writes, on the
+// barrier at shared::cluster address `bar` (in another CTA: as CUTLASS's
+// ClusterBarrier arrives on a peer's barrier to give back a buffer).
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival on this CTA's barrier `bar` that also expects `bytes` more
+// of the stores that complete on it (st.async).
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Until the phase of parity `parity` of this CTA's barrier `bar` has
+// completed, acquiring what its arrivals and the stores completing on it
+// released.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned at = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(at), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A thread's column of a hand-off ring of RING_TILES tiles, laid out as a
+// staging ring's buffers: step t in slot (t / TILE) % RING_TILES.
+template <bool MONO>
+struct Ring {
+  static constexpr int ROW = STAGE_LANES * (MONO ? 1 : 2);
+  static constexpr int BUF = TILE * ROW;
+  int* sm;
+
+  __device__ __forceinline__ int* at(int t) const {
+    return sm + ((t / TILE) % RING_TILES) * BUF + (t % TILE) * ROW;
+  }
+};
+
+// A thread's column of the next stage's hand-off ring, laid out as Ring,
+// by its shared::cluster address: `put` stores step t's values there
+// with st.async, each store completing its bytes on the slot's `full`
+// barrier in that CTA, so the writer never waits for its stores.
+template <bool MONO>
+struct RemoteRing {
+  unsigned data, full;  // the column's slot 0, the slots' first barrier
+
+  __device__ __forceinline__ void put(int t, int va, int vb) const {
+    const int slot = (t / TILE) % RING_TILES;
+    const unsigned at =
+        data + 4u * (unsigned)(slot * Ring<MONO>::BUF +
+                               (t % TILE) * Ring<MONO>::ROW);
+    const unsigned bar = full + 8u * (unsigned)slot;
+    if (MONO)
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], "
+          "%1, [%2];\n" ::"r"(at),
+          "r"(va), "r"(bar)
+          : "memory");
+    else
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 "
+          "[%0], {%1, %2}, [%3];\n" ::"r"(at),
+          "r"(va), "r"(vb), "r"(bar)
+          : "memory");
+  }
+};
+
+// An inner stage's step: its passes on step t's values from `in` (a
+// staging ring or a hand-off ring), their outputs put into `out`, the
+// next stage's hand-off ring, at step t.
+template <bool MONO, class State, class In>
 struct Pass {
   static constexpr bool packed = false;
   State& s;
-  const Stage<MONO, false>& in;
-  const Stage<MONO, false>& out;
+  const In& in;
+  const RemoteRing<MONO>& out;
 
   __device__ __forceinline__ void step(int t, int m) {
     const int* v = in.at(t);
     int va = v[0];
     int vb = MONO ? 0 : v[1];
     s.apply(m, va, vb);
-    int* h = const_cast<int*>(out.at(t));
-    h[0] = va;
-    if (!MONO) h[1] = vb;
+    out.put(t, va, vb);
   }
 };
 
-// What the warps of a pipelined block share of a lane: the block's 32
-// lanes from lane0 + 32 blockIdx.x, up to lane1; column `col` of each
-// ring is lane `lane`'s; `rounds` the block's most tiles plus the
-// pipeline's depth.
+// What every CTA of a cluster knows of a warp's lanes: the 32 lanes from
+// lane0 + 32 (CLUSTER_WARPS cluster + warp), up to lane1; column `col`
+// of each of the warp's rings is lane `lane`'s; `rounds` the warp's most
+// tiles, the tiles each stage hands on.
 struct Block {
   int col, base, lane, ns_lane, ns, ntiles, rounds;
   bool active;
   size_t row, at;
 };
 
-// Stage J of S of a pipelined block's scan, run by warp S - 1 - J (the
-// last stage by warp 0, whose threads fill_words strides by): the chain's
-// passes [stage_cut(J), stage_cut(J + 1)). Shared memory holds S rings
-// (and, with WVC, a ring of corrections after them), each laid out as a
-// staging ring: ring 0 the residuals stage 0 stages, ring j the outputs
-// of stage j - 1 that stage j reads. At round k stage j works on tile
-// k - j, and every warp meets at tile_barrier after each round: stage j
-// fills buffer (k - j) & 1 of ring j + 1 while stage j + 1 drains the
-// other, so no buffer is written while read. Every stage runs its tiles
-// through scan_tile: an inner stage's steps its passes (Pass), the last
-// stage's its passes and then what scan or scan_packed does per step
-// (Lane, its staging ring the last hand-off and the corrections it stages
-// itself), and their tails (finish_lane, finish_packed).
-template <bool MONO, bool WVC, bool PACKED, int S, int J, class Chain>
-__device__ __forceinline__ void run_stage(const Args& a, const Block& b,
-                                          int lane1, int* smem) {
+// Stage J of a cluster's scan, run by CTA J on the chain's passes
+// [stage_cut(J), stage_cut(J + 1)), warp w on its lanes. A CTA's dynamic
+// shared memory holds its barriers, then a warp's hand-off ring, laid
+// out as a staging ring (stage 0 stages its residuals in its own), and
+// with WVC the corrections' staging tiles after it. Stage J puts
+// each tile's outputs into stage J + 1's ring (distributed shared memory,
+// st.async), each store completing on the slot's `full` barrier there;
+// each thread of stage J + 1 arrives on that barrier expecting its
+// lane's bytes of the tile, waits for the phase, reads the tile and
+// arrives on the slot's `empty` barrier in stage J, which waits for it
+// before it writes that slot again. So a stage may run up to RING_TILES
+// tiles ahead of the next, and no stage waits for the ones before it but
+// through its input. Every stage runs its tiles through scan_tile: an
+// inner stage's steps its passes (Pass), the last stage's its passes and
+// then what scan or scan_packed does per step (Lane, its staging ring the
+// hand-off ring and the corrections it stages itself), and their tails
+// (finish_lane, finish_packed).
+template <bool MONO, bool WVC, bool PACKED, int J, class Chain>
+__device__ __forceinline__ void cluster_stage(const Args& a, const Block& b,
+                                              int lane1, int w, int* rings,
+                                              unsigned long long* bars) {
+  constexpr int S = SPLIT_STAGES;
   constexpr int C = MONO ? 1 : 2;
-  constexpr int R = ring_ints<MONO, false>();
+  constexpr int BUF = Ring<MONO>::BUF;
   constexpr int LO = stage_cut(Chain::K, S, J);
   constexpr int HI = stage_cut(Chain::K, S, J + 1);
   static_assert(LO < HI, "a stage without passes");
   using State = PassesState<MONO, LO, HI, Chain>;
   State s;
   if (b.active) s.load(seeds_from(a, LO), b.lane);
-  int* ring = smem + J * R + b.col * C;
+  unsigned long long* full = bars + w * RING_TILES;
+  unsigned long long* empty = bars + (CLUSTER_WARPS + w) * RING_TILES;
+  // the warp's hand-off ring, this thread's column; at the same offset in
+  // every CTA
+  int* mine = rings + w * (RING_TILES + (WVC ? 2 : 0)) * BUF + b.col * C;
+  const Ring<MONO> ring{mine};
+  // the hand-off around tile k: before it, its input landed (its lane's
+  // bytes of the tile expected) and its output slot free; after it, the
+  // input slot given back
+  auto take = [&](int k) {
+    const unsigned round = (unsigned)(k / RING_TILES) & 1u;
+    if (J > 0) {
+      mbar_expect(full + k % RING_TILES,
+                  4 * C * min(max(b.ns - k * TILE, 0), TILE));
+      mbar_wait(full + k % RING_TILES, round);
+    }
+    if (J + 1 < S) mbar_wait(empty + k % RING_TILES, round ^ 1u);
+  };
+  const unsigned empty_prev = J > 0 ? peer_addr(empty, J - 1) : 0u;
+  auto give = [&](int k) {
+    if (J > 0) mbar_arrive(empty_prev + 8 * (k % RING_TILES));
+  };
 
   if constexpr (J + 1 < S) {
-    Stage<MONO, false> in{ring, a.res + b.at, nullptr, b.row, b.ns};
-    const Stage<MONO, false> out{ring + R, nullptr, nullptr, b.row, b.ns};
-    Pass<MONO, State> p{s, in, out};
-    if (J == 0 && b.ntiles > 0) in.fetch(0);
-    for (int k = 0; k < b.rounds; ++k) {
-      const int kt = k - J;
-      if (kt >= 0 && kt < b.ntiles) {
-        if (J == 0) in.advance(kt, b.ntiles);
-        scan_tile<MONO>(a, kt, b.ns, p, Row{});
+    const RemoteRing<MONO> out{peer_addr(mine, J + 1),
+                               peer_addr(full, J + 1)};
+    if constexpr (J == 0) {
+      Stage<MONO, false> in{mine, a.res + b.at, nullptr, b.row, b.ns};
+      Pass<MONO, State, Stage<MONO, false>> p{s, in, out};
+      if (b.ntiles > 0) in.fetch(0);
+      for (int k = 0; k < b.rounds; ++k) {
+        take(k);
+        if (k < b.ntiles) {
+          in.advance(k, b.ntiles);
+          scan_tile<MONO>(a, k, b.ns, p, Row{});
+        }
+        give(k);
       }
-      tile_barrier<S>();
+    } else {
+      Pass<MONO, State, Ring<MONO>> p{s, ring, out};
+      for (int k = 0; k < b.rounds; ++k) {
+        take(k);
+        if (k < b.ntiles) scan_tile<MONO>(a, k, b.ns, p, Row{});
+        give(k);
+      }
     }
   } else {
-    const Stage<MONO, WVC> hs{ring, nullptr, nullptr, b.row, b.ns};
-    Stage<MONO, false> cs{ring + R, WVC ? a.corr + b.at : nullptr, nullptr,
-                          b.row, b.ns};
+    Stage<MONO, false> cs{mine + 2 * BUF, WVC ? a.corr + b.at : nullptr,
+                          nullptr, b.row, b.ns};
     const int lane = b.lane, ns = b.ns, ns_lane = b.ns_lane;
     const bool active = b.active;
-    Lane<MONO, WVC, PACKED, State> ln{
-        s, hs, PACKED ? nullptr : a.out + b.at, b.row,
+    Lane<MONO, WVC, PACKED, State, Ring<MONO>> ln{
+        s, ring, PACKED ? nullptr : a.out + b.at, b.row,
         active && a.joint[lane] != 0, active ? a.mute_thr[lane] : 0,
         ns_lane, 0xFFFFFFFFu, 0xFFFFFFFFu, ns_lane, ns_lane};
     const size_t W = PACKED ? (size_t)a.T * C * a.bps / 4 : 0;
@@ -670,30 +849,38 @@ __device__ __forceinline__ void run_stage(const Args& a, const Block& b,
                          : Row{};
     if (WVC && b.ntiles > 0) cs.fetch(0);
     for (int k = 0; k < b.rounds; ++k) {
-      const int kt = k - J;
-      if (kt >= 0 && kt < b.ntiles) {
-        if (WVC) cs.advance(kt, b.ntiles);
-        scan_tile<MONO>(a, kt, ns, ln, r);
+      take(k);
+      if (k < b.ntiles) {
+        if (WVC) cs.advance(k, b.ntiles);
+        scan_tile<MONO>(a, k, ns, ln, r);
       }
-      tile_barrier<S>();
+      give(k);
     }
-    if constexpr (PACKED)  // warp 0 runs the last stage: fill_words
+    if constexpr (PACKED)
       finish_packed(a, b.base, lane1, lane, active, ns_lane, b.ntiles, ln,
-                    out, W);
+                    out, W, (unsigned)b.col);
     else if (active)
       finish_lane<MONO, WVC>(a, lane, ns, b.row, ln);
   }
 }
 
-template <bool MONO, bool WVC, bool PACKED, int S, class Chain,
-          size_t... J>
-__device__ __forceinline__ void run_stages(const Args& a, int lane0,
-                                           int lane1, int* smem,
-                                           std::index_sequence<J...>) {
+template <bool MONO, bool WVC, bool PACKED, class Chain, size_t... J>
+__device__ __forceinline__ void run_cluster(const Args& a, int lane0,
+                                            int lane1,
+                                            unsigned long long* smem,
+                                            std::index_sequence<J...>) {
   constexpr int C = MONO ? 1 : 2;
+  unsigned long long* bars = smem;
+  int* rings = (int*)(smem + CLUSTER_BARRIERS);
+  for (int i = threadIdx.x; i < CLUSTER_BARRIERS; i += blockDim.x)
+    mbar_init(bars + i, STAGE_LANES);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  cluster_sync();  // every CTA's barriers set before any arrival
+  const int w = (int)threadIdx.x / THREADS;
   Block b;
-  b.col = threadIdx.x % THREADS;
-  b.base = lane0 + blockIdx.x * THREADS;
+  b.col = (int)threadIdx.x % THREADS;
+  b.base = lane0 +
+           ((int)blockIdx.x / SPLIT_STAGES * CLUSTER_WARPS + w) * THREADS;
   b.lane = b.base + b.col;
   b.active = b.lane < lane1;
   b.ns_lane = b.active ? a.nsamples[b.lane] : 0;
@@ -701,51 +888,74 @@ __device__ __forceinline__ void run_stages(const Args& a, int lane0,
   b.row = (size_t)a.L * C;
   b.at = (size_t)(b.active ? b.lane : 0) * C;
   b.ntiles = (b.ns + TILE - 1) / TILE;
-  b.rounds = __reduce_max_sync(0xFFFFFFFFu, b.ntiles) + S - 1;
-  const int w = S - 1 - (int)(threadIdx.x / THREADS);
-  ((w == (int)J ? run_stage<MONO, WVC, PACKED, S, (int)J, Chain>(a, b, lane1,
-                                                                smem)
+  b.rounds = __reduce_max_sync(0xFFFFFFFFu, b.ntiles);
+  const int j = cluster_rank();
+  ((j == (int)J ? cluster_stage<MONO, WVC, PACKED, (int)J, Chain>(
+                      a, b, lane1, w, rings, bars)
                 : void()),
    ...);
+  cluster_sync();  // no CTA leaves while a peer may still reach into it
 }
 
-// The stages of a pipelined block, a warp each.
-constexpr int SPLIT_STAGES = 4;
-
-// The bytes of a pipelined block's rings: the staging ring, the S - 1
-// hand-offs and with WVC the corrections' ring.
+// The bytes of a cluster CTA's dynamic shared memory: its barriers, a
+// warp's hand-off ring and, with WVC, its corrections' staging ring.
 template <bool MONO, bool WVC>
-constexpr int split_smem() {
-  return 4 * ring_ints<MONO, false>() * (SPLIT_STAGES + (WVC ? 1 : 0));
+constexpr int cluster_smem() {
+  return 8 * CLUSTER_BARRIERS +
+         4 * CLUSTER_WARPS * (RING_TILES + (WVC ? 2 : 0)) * Ring<MONO>::BUF;
 }
 
 template <bool MONO, bool WVC, bool PACKED, int... TV>
-__global__ void __launch_bounds__(SPLIT_STAGES * THREADS)
-decorr_split(Args a, int lane0, int lane1) {
-  extern __shared__ __align__(16) int split_rings[];
-  run_stages<MONO, WVC, PACKED, SPLIT_STAGES, Terms<TV...>>(
-      a, lane0, lane1, split_rings,
+__global__ void __cluster_dims__(SPLIT_STAGES, 1, 1)
+    __launch_bounds__(CLUSTER_WARPS * THREADS)
+        decorr_cluster(Args a, int lane0, int lane1) {
+  extern __shared__ __align__(16) unsigned long long cluster_shared[];
+  run_cluster<MONO, WVC, PACKED, Terms<TV...>>(
+      a, lane0, lane1, cluster_shared,
       std::make_index_sequence<SPLIT_STAGES>{});
 }
 
-// A kernel, the threads of its blocks (each block 32 lanes) and their
-// dynamic shared memory.
+// The SM (%smid) each CTA of a launch shaped as a cluster kernel's runs
+// on, and whether it saw every CTA of the launch resident at once (within
+// about a second): the launch a card test checks no two CTAs share an SM
+// by.
+__global__ void __cluster_dims__(SPLIT_STAGES, 1, 1)
+    __launch_bounds__(CLUSTER_WARPS * THREADS)
+        cluster_sm_probe(int* sm, int* all_resident, int* resident) {
+  if (threadIdx.x == 0) {
+    unsigned id;
+    asm volatile("mov.u32 %0, %%smid;\n" : "=r"(id));
+    sm[blockIdx.x] = (int)id;
+    atomicAdd(resident, 1);
+    const long long t0 = clock64();
+    int seen = 0;
+    while ((seen = *(volatile int*)resident) < (int)gridDim.x &&
+           clock64() - t0 < 2000000000LL) {
+    }
+    all_resident[blockIdx.x] = seen >= (int)gridDim.x;
+  }
+  __syncthreads();
+}
+
+// A kernel, the threads of its CTAs and their dynamic shared memory; the
+// lanes a group of `ctas` CTAs (a cluster's, else one) takes.
 struct Launch {
   void (*fn)(Args, int, int);
-  int threads, smem;
+  int threads, smem, lanes, ctas;
 };
 
 // The kernel compiled for chain `id` (decorr_pass.cuh's tables;
 // ops/decorr_cuda.py::CHAINS names the same list): a chain of
 // WVPK_CHAIN_TABLE on decorr_chain, one of WVPK_DECODE_CHAIN_TABLE on
-// decorr_split; else (an id of the other channel count too) the generic
+// decorr_cluster; else (an id of the other channel count too) the generic
 // one.
 template <bool MONO, bool WVC, bool PACKED>
 Launch kernel_for(int id) {
-#define WVPK_CHAIN(ID, MONO_, ...)                                   \
-  case ID:                                                           \
-    if constexpr (MONO_ == MONO)                                     \
-      return {decorr_chain<MONO, WVC, PACKED, __VA_ARGS__>, THREADS, 0}; \
+#define WVPK_CHAIN(ID, MONO_, ...)                                         \
+  case ID:                                                                 \
+    if constexpr (MONO_ == MONO)                                           \
+      return {decorr_chain<MONO, WVC, PACKED, __VA_ARGS__>, THREADS, 0,    \
+              THREADS, 1};                                                 \
     break;
   switch (id) {
     WVPK_CHAIN_TABLE
@@ -753,11 +963,12 @@ Launch kernel_for(int id) {
       break;
   }
 #undef WVPK_CHAIN
-#define WVPK_CHAIN(ID, MONO_, ...)                                \
-  case ID:                                                        \
-    if constexpr (MONO_ == MONO)                                  \
-      return {decorr_split<MONO, WVC, PACKED, __VA_ARGS__>,       \
-              SPLIT_STAGES * THREADS, split_smem<MONO, WVC>()};   \
+#define WVPK_CHAIN(ID, MONO_, ...)                                         \
+  case ID:                                                                 \
+    if constexpr (MONO_ == MONO)                                           \
+      return {decorr_cluster<MONO, WVC, PACKED, __VA_ARGS__>,              \
+              CLUSTER_WARPS * THREADS, cluster_smem<MONO, WVC>(),          \
+              CLUSTER_WARPS * THREADS, SPLIT_STAGES};                      \
     break;
   switch (id) {
     WVPK_DECODE_CHAIN_TABLE
@@ -765,7 +976,42 @@ Launch kernel_for(int id) {
       break;
   }
 #undef WVPK_CHAIN
-  return {decorr_generic<MONO, WVC, PACKED>, THREADS, 0};
+  return {decorr_generic<MONO, WVC, PACKED>, THREADS, 0, THREADS, 1};
+}
+
+// The blocks and dynamic shared memory of kernel k's launch on `lanes`
+// lanes, as kernel `fn` (k's, or the probe in its shape) takes them. A
+// cluster kernel's CTAs take more than half an SM's shared memory, so no
+// two of them share an SM (1 KB a block is the system's,
+// cudaDevAttrReservedSharedMemoryPerBlock); past the default limit of
+// 48 KB the kernel is given leave. Returns the CUDA error.
+cudaError_t launch_shape(const Launch& k, const void* fn, int lanes,
+                         int& blocks, int& smem) {
+  blocks = (lanes + k.lanes - 1) / k.lanes * k.ctas;
+  smem = k.smem;
+  if (k.ctas > 1) {
+    int dev = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(
+          &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (e != cudaSuccess) return e;
+    smem = max(smem, per_sm / 2);
+  }
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(fn,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  return cudaSuccess;
+}
+
+Launch launch_of(int chain, int mono, int wvc, bool packed) {
+  return mono ? (wvc      ? kernel_for<true, true, false>(chain)
+                 : packed ? kernel_for<true, false, true>(chain)
+                          : kernel_for<true, false, false>(chain))
+              : (wvc      ? kernel_for<false, true, false>(chain)
+                 : packed ? kernel_for<false, false, true>(chain)
+                          : kernel_for<false, false, false>(chain));
 }
 
 }  // namespace
@@ -809,22 +1055,41 @@ extern "C" int wvpk_decorr_post(const void* res, const void* corr,
          (const int*)broke,        (const int*)shift,
          L,                        T,
          bps,                      hybrid};
-  const Launch k =
-      mono ? (wvc      ? kernel_for<true, true, false>(chain)
-              : packed ? kernel_for<true, false, true>(chain)
-                       : kernel_for<true, false, false>(chain))
-           : (wvc      ? kernel_for<false, true, false>(chain)
-              : packed ? kernel_for<false, false, true>(chain)
-                       : kernel_for<false, false, false>(chain));
+  const Launch k = launch_of(chain, mono, wvc, packed);
   void* params[] = {&a, &lo, &hi};
-  if (k.smem > 48 * 1024) {  // past the default limit: ask for it
-    const cudaError_t e = cudaFuncSetAttribute(
-        (const void*)k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        k.smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const cudaError_t e = cudaLaunchKernel(
-      (const void*)k.fn, dim3((hi - lo + THREADS - 1) / THREADS),
-      dim3(k.threads), params, k.smem, (cudaStream_t)stream);
+  int blocks = 0, smem = 0;
+  cudaError_t e = launch_shape(k, (const void*)k.fn, hi - lo, blocks, smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernel((const void*)k.fn, dim3(blocks), dim3(k.threads),
+                       params, smem, (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The CTAs of chain `chain`'s kernel launched on L lanes (mono, wvc and
+// bps as wvpk_decorr_post's).
+extern "C" int wvpk_decorr_ctas(int chain, int mono, int wvc, int bps,
+                                int L) {
+  const Launch k = launch_of(chain, mono, wvc, bps != 0);
+  return (L + k.lanes - 1) / k.lanes * k.ctas;
+}
+
+// cluster_sm_probe launched on `stream` in the shape of chain `chain`'s
+// cluster kernel on L lanes (its CTAs, threads and dynamic shared
+// memory): sm and all_resident int32, wvpk_decorr_ctas of them, resident
+// one int32, zeroed. Returns the CUDA error (cudaErrorInvalidValue where
+// the chain's kernel is not a cluster kernel).
+extern "C" int wvpk_decorr_cluster_probe(int chain, int mono, int wvc,
+                                         int bps, int L, void* sm,
+                                         void* all_resident, void* resident,
+                                         void* stream) {
+  const Launch k = launch_of(chain, mono, wvc, bps != 0);
+  if (k.ctas == 1 || L <= 0) return (int)cudaErrorInvalidValue;
+  int blocks = 0, smem = 0;
+  cudaError_t e =
+      launch_shape(k, (const void*)cluster_sm_probe, L, blocks, smem);
+  if (e != cudaSuccess) return (int)e;
+  void* params[] = {&sm, &all_resident, &resident};
+  e = cudaLaunchKernel((const void*)cluster_sm_probe, dim3(blocks),
+                       dim3(k.threads), params, smem, (cudaStream_t)stream);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

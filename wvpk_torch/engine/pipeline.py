@@ -20,7 +20,8 @@ Traced (trace.py), a call is the `decode` span (`#blocks`, `#buckets`,
 `#chunks`) over `staging`, `launch` (enqueue only; `#h2d_bytes`; `#lanes`,
 every PCM lane launched, `#packed_lanes`, those on the packed route, and
 `#chain_lanes` / `#generic_lanes`, those whose chain routes them to a
-compiled chain kernel or to the generic one, ops/decorr_cuda.py::lane_runs),
+compiled chain kernel or to the generic one, ops/decorr_cuda.py::lane_runs,
+and `#cluster_lanes`, those of the chain kernels that run on a cluster),
 `transfer` and `finalize`, a chunk at a time; `transfer` holds
 `transfer.enqueue` (`_start_fetch`), then `transfer.wait` (the host
 blocked on the queued work: under a collector the stream, or the event
@@ -47,7 +48,7 @@ from ..config import get_options
 from ..container.blockstate import BlockState
 from ..debug import check_against_oracle
 from ..device import copy_stream
-from ..ops.decorr_cuda import GENERIC, lane_runs
+from ..ops.decorr_cuda import CLUSTER, GENERIC, lane_runs
 from ..parallel.mesh import launch_sharded_bucket, make_mesh
 from .dsd_pipeline import fetch_list, finalize_dsd_groups, launch_dsd_states
 from .fused import DEVICE_FIELDS, WVX_FIELDS, deliver, fused_decode, \
@@ -143,15 +144,18 @@ def deliver_bucket(b: Bucket, t: dict[str, torch.Tensor]):
     (payload, crcmute) as fused.deliver gives them. Counts its lanes in
     the open span (`#lanes`, `#packed_lanes`, and by the decorrelation
     kernel their chains route them to, `#chain_lanes` and
-    `#generic_lanes`: on the CPU the plain version runs in its place)."""
+    `#generic_lanes`, and of the former `#cluster_lanes`: on the CPU the
+    plain version runs in its place)."""
     packed = packed_route(b)
     L = len(b.states)
-    chain = sum(e - s for k, s, e in lane_runs(
-        L, b.profile.mono, b.static_terms, b.chain_segments) if k != GENERIC)
+    runs = lane_runs(L, b.profile.mono, b.static_terms, b.chain_segments)
+    chain = sum(e - s for k, s, e in runs if k != GENERIC)
     trace.count("lanes", L)
     trace.count("packed_lanes", L if packed else 0)
     trace.count("chain_lanes", chain)
     trace.count("generic_lanes", L - chain)
+    trace.count("cluster_lanes", sum(e - s for k, s, e in runs
+                                     if k in CLUSTER))
     out, crc, mute, crc_x, crc_wvc = decode_tensors(b, t, pack_bps=packed)
     return deliver(out, crc, mute, None if packed else delivery_bps(b),
                    crc_x=crc_x, crc_wvc=crc_wvc)

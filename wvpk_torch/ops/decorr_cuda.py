@@ -9,11 +9,11 @@ delivered payload itself (plain version ops/decorr.py::decorr_post_packed).
 
 csrc/decorr.cu compiles one kernel for each chain of CHAINS (its terms
 fixed, so its weights and history rings live in registers; a chain past
-the encoder's, WavPack's 16-term very high mode, on four warps a block,
-each a stage of the chain) and a generic kernel that reads each lane's
-chain at run time. A call splits the bucket's lanes into runs by chain,
-as wvpk's decorr_post_any does with `static_terms` and `chain_segments`,
-and launches each run's kernel on its
+the encoder's, WavPack's 16-term very high mode, on a cluster of four
+CTAs, each a stage of the chain on an SM of its own) and a generic kernel
+that reads each lane's chain at run time. A call splits the bucket's lanes
+into runs by chain, as wvpk's decorr_post_any does with `static_terms` and
+`chain_segments`, and launches each run's kernel on its
 lane range: the first run on the caller's stream, the others on side
 streams forked from it and joined back into it, so that the runs of a
 mixed bucket share the card. The lanes of a run
@@ -56,6 +56,8 @@ CHAINS = (
 )
 ENCODE_CHAINS = CHAINS[:8]
 GENERIC = -1        # the id of the generic kernel
+# the ids whose kernel is the cluster kernel (WVPK_DECODE_CHAIN_TABLE's)
+CLUSTER = frozenset(range(len(ENCODE_CHAINS), len(CHAINS)))
 _IDS = {(mono, terms): k for k, (_name, mono, terms) in enumerate(CHAINS)}
 # the kernels' names, as the launch counters key them
 INSTANCES = tuple(name for name, _m, _t in CHAINS) + ("generic",
@@ -113,6 +115,11 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
+    lib.wvpk_decorr_ctas.restype = ctypes.c_int
+    lib.wvpk_decorr_ctas.argtypes = [ctypes.c_int] * 5
+    probe = lib.wvpk_decorr_cluster_probe
+    probe.restype = ctypes.c_int
+    probe.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     return lib
 
 
@@ -248,3 +255,23 @@ def decorr_post_wvc_cuda(residuals, corr, terms, deltas, w0_a, w0_b,
 for _fn in (decorr_post_cuda, decorr_post_wvc_cuda):
     _fn.launches = 0
     _fn.chain_launches = dict.fromkeys(INSTANCES, 0)
+
+
+def cluster_sms(L: int, mono: bool, device, wvc: bool = False,
+                bps: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SM (%smid) of each CTA of a launch in the shape of the very
+    high chain's cluster kernel on L lanes (its CTAs, threads and dynamic
+    shared memory, `wvc` and `bps` as decorr_post_cuda's), and whether
+    each saw every CTA of the launch resident at once: a probe kernel in
+    that shape, run to check that no two CTAs of a launch share an SM."""
+    chain = len(ENCODE_CHAINS) + (1 if mono else 0)
+    n = _lib().wvpk_decorr_ctas(chain, int(mono), int(wvc), bps, L)
+    sm = torch.full((n,), -1, dtype=I32, device=device)
+    seen = torch.zeros(n, dtype=I32, device=device)
+    resident = torch.zeros(1, dtype=I32, device=device)
+    err = _lib().wvpk_decorr_cluster_probe(
+        chain, int(mono), int(wvc), bps, L, sm.data_ptr(), seen.data_ptr(),
+        resident.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster probe launch failed: CUDA error {err}")
+    return sm, seen.bool()

@@ -11,6 +11,7 @@
     python3 wvpk_torch/tools/kernel_ab.py --sass OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --e2e OLD_ROOT NEW_ROOT
     python3 wvpk_torch/tools/kernel_ab.py --store OLD_ROOT NEW_ROOT
+    python3 wvpk_torch/tools/kernel_ab.py --very-high OLD_ROOT NEW_ROOT
 
 Two checkouts, in turns old, new, new, old. Each turn is a process of its
 own with that root's `wvpk_torch` and `chip_smoke.py` first on the path
@@ -121,6 +122,18 @@ peak device memory of one deliver_bucket over what was allocated before
 it; one deliver_bucket under torch.profiler, its device time by kernel
 and its ops grouped by input shape; a digest of the payload and CRC/mute
 table, which must agree across the turns.
+
+`--very-high OLD_ROOT NEW_ROOT` runs the same turns on the decorrelation
+kernel of the very high chains (16 terms stereo, 14 mono; PERF.md
+section 4), on seeded inputs made on the card (random residuals,
+weights and histories, most lanes at their bucket's sample count, a few
+empty or short, a tenth muted by their limit): at the very high
+library cell's bucket (VH_BUCKET: 1,925 lanes staged at 65,536 steps,
+44,100 samples), at chip_smoke.py's very high corpus shape (VH_CORPUS)
+and at the card tests' (VH_SMALL), stereo and mono, each store
+(`packed` at 2 bytes a sample, `unpacked`, the `wvc` arm): `--reps`
+launches each with CUDA events, and a digest of each launch's outputs,
+which must agree across the turns.
 
 Needs one CUDA device; imports no jax.
 """
@@ -387,6 +400,103 @@ def ab_store(old: str, new: str, reps: int) -> int:
         **{key: {side: [t[key] for t in ts] for side, ts in sides.items()}
            for key in ("deliver_ms", "entropy_ms", "store_ms", "peak_mb",
                        "kernel_ms_sum")}}))
+    return 0 if same else 1
+
+
+# (lanes, staged steps, samples a lane) of the --very-high shapes
+VH_BUCKET = (1925, 65536, 44100)
+VH_CORPUS = (2016, 4096, 4096)
+VH_SMALL = (45, 200, 200)
+
+
+def _very_high_inputs(mono, L, T, ns, wvc, dev):
+    """Seeded decorrelation inputs of L lanes on the very high chain of
+    `mono`'s channel count, made on `dev` (the same on one card and torch
+    build): (arguments, keywords of the packed store, its terms)."""
+    import torch
+
+    from wvpk_torch.ops.decorr import Pack
+    from wvpk_torch.ops.decorr_cuda import CHAINS
+
+    name = "very_high_mono" if mono else "very_high"
+    (chain,) = [t for n, _m, t in CHAINS if n == name]
+    g = torch.Generator(device=dev).manual_seed(18 + int(mono))
+    C = 1 if mono else 2
+    i32 = torch.int32
+
+    def rand(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=i32)
+
+    terms = torch.zeros(L, 16, dtype=i32, device=dev)
+    terms[:, :len(chain)] = torch.tensor(chain, dtype=i32, device=dev)
+    deltas = (terms != 0).to(i32) * 2
+    nsamples = torch.full((L,), ns, dtype=i32, device=dev)
+    nsamples[:3] = torch.tensor((0, 1, ns - 1), dtype=i32, device=dev)
+    lim = torch.where(rand(0, 10, L) == 0, 2**13, 2**40).to(torch.int64)
+    args = [rand(-2**14, 2**14, T, L, C), terms, deltas,
+            rand(-1024, 1024, L, 16), rand(-1024, 1024, L, 16),
+            rand(-2**15, 2**15, L, 16, 8), rand(-2**15, 2**15, L, 16, 8),
+            torch.full((L,), len(chain), dtype=i32, device=dev), nsamples,
+            rand(0, 2, L), lim]
+    if wvc:
+        args.insert(1, rand(-2**12, 2**12, T, L, C))
+    pack = Pack(rand(0, 100, L) == 0, torch.zeros(L, dtype=i32, device=dev),
+                2, False)
+    return args, pack, chain
+
+
+def measure_very_high(root: str, reps: int) -> dict:
+    """One --very-high turn on `root`."""
+    _import_root(root)
+    import torch
+
+    from wvpk_torch.ops.decorr_cuda import decorr_post_cuda, \
+        decorr_post_wvc_cuda
+
+    dev = torch.device("cuda")
+    ms, digests = {}, {}
+    for shape, (L, T, ns) in (("bucket", VH_BUCKET), ("corpus", VH_CORPUS),
+                              ("small", VH_SMALL)):
+        for mono in (False, True):
+            for store in ("packed", "unpacked", "wvc"):
+                args, pack, chain = _very_high_inputs(
+                    mono, L, T, ns, store == "wvc", dev)
+                kw = dict(mono=mono, static_terms=chain)
+                fn = decorr_post_wvc_cuda if store == "wvc" \
+                    else decorr_post_cuda
+                if store == "packed":
+                    kw["pack"] = pack
+                key = f"{shape}.{'mono' if mono else 'stereo'}.{store}"
+                digests[key] = _digest(fn(*args, **kw))
+                _timed(lambda: fn(*args, **kw), reps)   # clocks come up
+                ms[key] = _timed(lambda: fn(*args, **kw), reps)
+                del args, pack
+                torch.cuda.empty_cache()
+    return {"root": root, "ms": ms, "digest": digests,
+            "card": torch.cuda.get_device_name(0)}
+
+
+def ab_very_high(old: str, new: str, reps: int) -> int:
+    turns = []
+    for root in (old, new, new, old):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), root,
+             "--very-high-turn", "--reps", str(reps)],
+            capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr)
+            return 1
+        turn = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(turn))
+        turns.append(turn)
+    same = all(t["digest"] == turns[0]["digest"] for t in turns)
+    sides = {"old": turns[0::3], "new": turns[1:3]}
+    print(json.dumps({
+        "same_outputs": same,
+        "ms": {key: {side: [t["ms"][key] for t in ts]
+                     for side, ts in sides.items()}
+               for key in turns[0]["ms"]}}))
     return 0 if same else 1
 
 
@@ -1144,6 +1254,12 @@ def main() -> int:
                     "turns")
     ap.add_argument("--store-turn", action="store_true",
                     help="measure the root OLD's delivery in this process")
+    ap.add_argument("--very-high", action="store_true",
+                    help="the very high chains' decorrelation kernel: OLD "
+                    "NEW in turns")
+    ap.add_argument("--very-high-turn", action="store_true",
+                    help="measure the root OLD's very high kernel in this "
+                    "process")
     ap.add_argument("--sass", action="store_true",
                     help="compare OLD's and NEW's SASS of SASS_SOURCES")
     a = ap.parse_args()
@@ -1165,6 +1281,13 @@ def main() -> int:
     if a.store_turn:
         print(json.dumps(measure_store(a.old, a.reps)))
         return 0
+    if a.very_high_turn:
+        print(json.dumps(measure_very_high(a.old, a.reps)))
+        return 0
+    if a.very_high:
+        if not (a.old and a.new):
+            ap.error("--very-high takes OLD_ROOT and NEW_ROOT")
+        return ab_very_high(a.old, a.new, a.reps)
     if a.store:
         if not (a.old and a.new):
             ap.error("--store takes OLD_ROOT and NEW_ROOT")
